@@ -1,0 +1,110 @@
+"""Build and load the CUDA kernel libraries (nvcc by hand, bound with ctypes).
+
+Each source in t3fs_torch/csrc/ becomes one shared library with a plain C
+interface, compiled for sm_90a at first use into t3fs_torch/_build/ (listed
+in .gitignore), under a name keyed by a hash of the source and the flags,
+so an edited source rebuilds and an unchanged one loads.  All missing
+libraries compile in parallel, one nvcc each.  Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+# every exported function of each library: name -> argument types
+SIGNATURES: dict[str, dict[str, list]] = {
+    "crc_words": {
+        "t3fs_crc_seg_words": [_P, _LL, _P, _P, _P],
+        "t3fs_crc32c_words_raw": [_P, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "rs_raid6_words": {
+        "t3fs_rs_raid6_words": [_P, _P, _LL, _I, _LL, _I, _P],
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas register/shared-memory report) of this process's builds
+build_logs: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> None:
+    """Compile every library that is not built yet, all nvcc runs at once."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    nvcc = None
+    procs = []
+    for name in SIGNATURES:
+        out = _target(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or _nvcc()
+        tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode:
+            errors.append(f"{name}.cu (nvcc rc={proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.t3fs_error_string.argtypes = [ctypes.c_int]
+            lib.t3fs_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError != 0)."""
+    if rc:
+        msg = lib.t3fs_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -1,0 +1,217 @@
+"""The write-path kernels' plain versions (t3fs_torch.ops.cuda_codec on CPU
+tensors) against the JAX package's Pallas kernels in interpret mode, the
+codec tables against the JAX package's arrays, and a numpy emulation of the
+CUDA CRC kernel's table lookups and chunk fold (the kernel itself runs only
+on a GPU; the `cuda` tests hold it against the plain versions there).
+
+Shapes follow tests/test_pallas_codec.py.  Every comparison is bit-exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from t3fs.ops import pallas_codec as pc
+from t3fs.ops.crc32c import crc32c_ref, default_matrices as ref_matrices
+from t3fs.ops.jax_codec import pack_bits_u32 as jax_pack_u32
+from t3fs.ops.rs import default_rs as ref_default_rs
+from t3fs_torch.ops import cuda_codec as cc
+from t3fs_torch.ops.blocks import pick_block
+from t3fs_torch.ops.rs import default_rs
+from t3fs_torch.ops.tables import build_codec_tables, codec_tables, load_codec_tables
+
+rng = np.random.default_rng(17)
+
+
+def _words(byts: np.ndarray) -> np.ndarray:
+    """uint8 (..., L) -> little-endian uint32 (..., L//4)."""
+    return np.ascontiguousarray(byts).view(np.uint32)
+
+
+def _t(words_u32: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(words_u32.view(np.int32))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def test_crc_seg_words_matches_pallas():
+    rows = rng.integers(0, 2**32, (16, 128), dtype=np.uint32)
+    ref = pc.make_crc_seg_words_pallas(block_r=8, interpret=True)(jnp.asarray(rows))
+    got = cc.make_crc_seg_words(device="cpu")(_t(rows))
+    assert np.array_equal(_u32(got), np.asarray(jax_pack_u32(ref)))
+
+
+@pytest.mark.parametrize("L", [512, 2048, 5120])
+def test_crc32c_words_raw_and_crc_match_pallas(L):
+    rows = rng.integers(0, 256, (3, L), dtype=np.uint8)
+    w = _words(rows)
+    ref_raw = np.asarray(pc.make_crc32c_words_raw(L // 4, block_r=8, interpret=True)(
+        jnp.asarray(w)))
+    got_raw = cc.make_crc32c_words_raw(L // 4, device="cpu")(_t(w))
+    assert np.array_equal(_u32(got_raw), ref_raw)
+    got = cc.make_crc32c_words(L // 4, device="cpu")(_t(w))
+    assert [int(c) for c in _u32(got)] == [crc32c_ref(r.tobytes()) for r in rows]
+
+
+@pytest.mark.parametrize("block_w,L", [(512, 2048), (4096, 16384)])
+def test_rs_encode_words_matches_pallas(block_w, L):
+    data = rng.integers(0, 256, (2, 8, L), dtype=np.uint8)
+    ref = np.asarray(pc.make_rs_encode_words_pallas(block_w=block_w, interpret=True)(
+        jnp.asarray(_words(data))))
+    got = cc.make_rs_encode_words(device="cpu")(_t(_words(data)))
+    assert np.array_equal(_u32(got), ref)
+    for i in range(2):
+        assert np.array_equal(_u32(got[i]).view(np.uint8).reshape(2, L),
+                              default_rs().encode_ref(data[i]))
+
+
+def test_stripe_encode_step_words_matches_pallas():
+    L = 2048
+    stripes = rng.integers(0, 256, (2, 8, L), dtype=np.uint8)
+    rpar, rcrc = pc.make_stripe_encode_step_words(L // 4, interpret=True)(
+        jnp.asarray(_words(stripes)))
+    parity, crcs = cc.make_stripe_encode_step_words(L // 4, device="cpu")(
+        _t(_words(stripes)))
+    assert np.array_equal(_u32(parity), np.asarray(rpar))
+    assert np.array_equal(_u32(crcs), np.asarray(rcrc))
+    assert crcs.shape == (2, 10)
+
+
+def _jax_arrays(nseg: int, k: int = 8, m: int = 2) -> dict:
+    """The codec constants as the JAX package builds them."""
+    mats, rs = ref_matrices(), ref_default_rs(k, m)
+    return {
+        "crc_word_weights": pc._crc_word_weights(),
+        "combine_stack": mats.combine_stack(nseg, pc.WORD_SEG_BYTES),
+        "seg_shift": mats.shift_matrix(pc.WORD_SEG_BYTES),
+        "chunk_affine": np.array(mats.affine_const(nseg * pc.WORD_SEG_BYTES),
+                                 dtype=np.uint32),
+        "rs_G": rs.G,
+        "rs_parity_bitmatrix": rs.parity_bitmatrix,
+        "rs_code_id": np.array(rs.code_id),
+        "rs_poly": np.array(rs.gf.poly, dtype=np.int64),
+    }
+
+
+@pytest.mark.parametrize("nseg", [1, 4])
+def test_load_codec_tables_from_jax_arrays(nseg):
+    """The port's own constants equal the JAX package's, and tables loaded
+    from either give identical outputs."""
+    ref_arrays, own = _jax_arrays(nseg), build_codec_tables(nseg)
+    assert ref_arrays.keys() == own.keys()
+    for key in own:
+        assert np.array_equal(np.asarray(ref_arrays[key]), np.asarray(own[key])), key
+    a = load_codec_tables(ref_arrays, device="cpu")
+    b = load_codec_tables(own, device="cpu")
+    for f in ("crc_word_weights", "crc_nibble_table", "combine_stack",
+              "combine_cols", "seg_shift_cols", "rs_parity_bitmatrix"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert (a.chunk_affine, a.rs_poly_low, a.rs_code_id, a.rs_raid6) == \
+        (b.chunk_affine, b.rs_poly_low, "raid6-g2-11d", True)
+    words = _t(rng.integers(0, 2**32, (3, nseg * 128), dtype=np.uint32))
+    assert torch.equal(cc.crc_words_raw(words, a), cc.crc_words_raw(words, b))
+    data = _t(rng.integers(0, 2**32, (2, 8, 64), dtype=np.uint32))
+    assert torch.equal(cc.rs_raid6_words(data, a), cc.rs_raid6_words(data, b))
+
+
+def _emulate_crc_kernel(words: np.ndarray, tables, spw: int) -> list[int]:
+    """numpy model of crc_words.cu: per-segment nibble-table lookups in the
+    kernel's [nibble][value][w % 4][w // 4] layout, the Horner fold over a
+    run of spw segments with Mb^512, then P[last] of the run."""
+    T = tables.crc_nibble_table.numpy().view(np.uint32)
+    shift = tables.seg_shift_cols.numpy().view(np.uint32)
+    comb = tables.combine_cols.numpy().view(np.uint32)
+
+    def matvec(cols, x):
+        y = 0
+        for i in range(32):
+            if (x >> i) & 1:
+                y ^= int(cols[i])
+        return y
+
+    def seg_crc(seg):
+        x = 0
+        for w in range(128):
+            lane, i = w // 4, w % 4
+            for j in range(8):
+                nib = (int(seg[w]) >> (4 * j)) & 15
+                x ^= int(T[((j * 16 + nib) * 4 + i) * 32 + lane])
+        return x
+
+    S = tables.nseg
+    out = []
+    for chunk in words.reshape(len(words), S, 128):
+        total = 0
+        for r0 in range(0, S, spw):
+            acc = 0
+            for s in range(r0, r0 + spw):
+                acc = matvec(shift, acc) ^ seg_crc(chunk[s])
+            total ^= matvec(comb[r0 + spw - 1], acc)
+        out.append(total)
+    return out
+
+
+@pytest.mark.parametrize("nseg,spw", [(4, 1), (4, 2), (4, pick_block(4, 16)), (6, 3)])
+def test_crc_kernel_table_layout_and_fold(nseg, spw):
+    """The CUDA kernel's tables and its fold, emulated on the host, give the
+    plain version's raw CRCs for every run length it may pick."""
+    tables = codec_tables(nseg, device="cpu")
+    words = rng.integers(0, 2**32, (2, nseg * 128), dtype=np.uint32)
+    want = [int(c) for c in _u32(cc.crc_words_raw(_t(words), tables))]
+    assert _emulate_crc_kernel(words, tables, spw) == want
+
+
+def test_wrappers_reject_bad_input():
+    tables = codec_tables(1, device="cpu")
+    good = torch.zeros(2, 128, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        cc.crc_words_raw(good.to(torch.int64), tables)
+    with pytest.raises(ValueError):
+        cc.crc_words_raw(torch.zeros(2, 256, dtype=torch.int32), tables)
+    with pytest.raises(ValueError):
+        cc.crc_seg_words(torch.zeros(4, 256, dtype=torch.int32)[:, ::2], tables)
+    with pytest.raises(ValueError):
+        cc.rs_raid6_words(torch.zeros(2, 4, 8, dtype=torch.int32), tables)
+    with pytest.raises(ValueError):
+        cc.make_crc32c_words_raw(100, device="cpu")
+    with pytest.raises(ValueError):
+        cc.make_rs_encode_words(default_rs(4, 3), device="cpu")
+
+
+def test_plain_versions_never_count_launches():
+    cc.reset_launches()
+    tables = codec_tables(1, device="cpu")
+    cc.crc_words_raw(torch.zeros(1, 128, dtype=torch.int32), tables)
+    cc.rs_raid6_words(torch.zeros(1, 8, 4, dtype=torch.int32), tables)
+    assert cc.launches == {"crc_words": 0, "rs_raid6_words": 0}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_gpu(cuda_device):
+    """On the card: B1 and B2 against their plain versions (bit-exact)."""
+    tables = codec_tables(8, device=cuda_device)
+    words = torch.from_numpy(rng.integers(0, 2**32, (5, 8 * 128), dtype=np.uint32)
+                             .view(np.int32)).to(cuda_device)
+    cc.reset_launches()
+    assert torch.equal(cc.crc_words_raw(words, tables),
+                       cc.crc_words_raw_plain(words, tables))
+    rows = words.reshape(-1, 128)
+    assert torch.equal(cc.crc_seg_words(rows, tables),
+                       cc.crc_seg_words_plain(rows, tables))
+    data = words[:4].reshape(4, 8, 128)
+    assert torch.equal(cc.rs_raid6_words(data, tables),
+                       cc.rs_raid6_words_plain(data, tables))
+    odd = data[:, :, :127].contiguous()           # scalar (non-vector) path
+    assert torch.equal(cc.rs_raid6_words(odd, tables),
+                       cc.rs_raid6_words_plain(odd, tables))
+    torch.cuda.synchronize()
+    assert cc.launches == {"crc_words": 2, "rs_raid6_words": 2}

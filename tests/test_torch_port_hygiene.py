@@ -1,0 +1,98 @@
+"""The port stands alone: t3fs_torch and chip_smoke import neither jax nor
+the JAX package, every entry point defaults to CUDA and refuses to run on
+the CPU unasked, and chip_smoke fails without a GPU."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+IMPORT_ALL = """
+import pkgutil, sys
+import t3fs_torch
+mods = [m.name for m in pkgutil.walk_packages(t3fs_torch.__path__, "t3fs_torch.")]
+for name in mods:
+    __import__(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "t3fs"
+             or m.startswith("t3fs."))
+print(len(mods), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_t3fs():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[0]) >= 14      # every module was imported
+
+
+def test_port_sources_name_no_jax_or_t3fs_module():
+    for path in [*ROOT.glob("t3fs_torch/**/*.py"), ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "t3fs"), \
+                    f"{path}: {s}"
+
+
+def _entry_points():
+    from t3fs_torch import resolve_device
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.ops import cuda_codec, tables, torch_codec
+    from t3fs_torch.storage.codec_backend import (
+        CudaChecksumBackend, make_checksum_backend)
+
+    return [
+        resolve_device,
+        cuda_codec.make_crc_seg_words,
+        lambda: cuda_codec.make_crc32c_words_raw(128),
+        lambda: cuda_codec.make_crc32c_words(128),
+        cuda_codec.make_rs_encode_words,
+        lambda: cuda_codec.make_stripe_encode_step_words(128),
+        tables.codec_tables,
+        lambda: tables.load_codec_tables(tables.build_codec_tables()),
+        lambda: torch_codec.make_crc32c_raw(512),
+        lambda: torch_codec.make_crc32c_batch(10),
+        torch_codec.make_rs_encode,
+        torch_codec.make_rs_encode_matmul,
+        lambda: torch_codec.make_stripe_encode_step(512),
+        CudaChecksumBackend,
+        lambda: make_checksum_backend("tpu"),
+        TorchECCodec,
+    ]
+
+
+@pytest.mark.parametrize("i", range(16))
+def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    entries = _entry_points()
+    assert len(entries) == 16
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entries[i]()
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke would run for real")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+    # alone in a directory, without the package, it fails as well
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
