@@ -16,23 +16,11 @@
 // handles 4 words with 16-byte loads and stores, so (k+2) * W * 4 bytes
 // per stripe cross HBM once.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "swar.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t xtimes(uint32_t x, uint32_t low) {
-  return ((x << 1) & 0xFEFEFEFEu) ^ (((x >> 7) & 0x01010101u) * low);
-}
-__device__ __forceinline__ uint4 xtimes(uint4 v, uint32_t low) {
-  return make_uint4(xtimes(v.x, low), xtimes(v.y, low), xtimes(v.z, low),
-                    xtimes(v.w, low));
-}
-__device__ __forceinline__ uint4 operator^(uint4 a, uint4 b) {
-  return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
-}
 
 // in: (n, k, wv) vectors, out: (n, 2, wv) vectors.
 template <typename V>
@@ -62,13 +50,8 @@ rs_raid6_kernel(const V* __restrict__ in, V* __restrict__ out, int k,
 template <typename V>
 cudaError_t launch(const void* in, void* out, long long n, int k, long long wv,
                    uint32_t low, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long total = n * wv;
-  const long long want = (total + kThreads - 1) / kThreads;
-  const long long cap = 16LL * (sms > 0 ? sms : 1);
-  rs_raid6_kernel<V><<<(int)(want < cap ? want : cap), kThreads, 0, stream>>>(
+  rs_raid6_kernel<V><<<grid_blocks(total, kThreads), kThreads, 0, stream>>>(
       static_cast<const V*>(in), static_cast<V*>(out), k, wv, total, low);
   return cudaGetLastError();
 }
@@ -85,9 +68,7 @@ int t3fs_rs_raid6_words(const void* words, void* parity, long long n, int k,
   if (k < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t low = (uint32_t)poly_low & 0xFFu;
-  const bool vec = (w % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(words) % 16 == 0) &&
-                   (reinterpret_cast<uintptr_t>(parity) % 16 == 0);
+  const bool vec = (w % 4 == 0) && aligned16(words) && aligned16(parity);
   if (vec) return (int)launch<uint4>(words, parity, n, k, w / 4, low, s);
   return (int)launch<uint32_t>(words, parity, n, k, w, low, s);
 }

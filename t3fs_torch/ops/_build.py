@@ -2,9 +2,10 @@
 
 Each source in t3fs_torch/csrc/ becomes one shared library with a plain C
 interface, compiled for sm_90a at first use into t3fs_torch/_build/ (listed
-in .gitignore), under a name keyed by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one loads.  All missing
-libraries compile in parallel, one nvcc each.  Nothing here runs at import.
+in .gitignore), under a name keyed by a hash of the source, the shared
+headers and the flags, so an edited source or header rebuilds and an
+unchanged one loads.  All missing libraries compile in parallel, one nvcc
+each.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -35,6 +36,15 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "rs_raid6_words": {
         "t3fs_rs_raid6_words": [_P, _P, _LL, _I, _LL, _I, _P],
     },
+    "rs_reconstruct_words": {
+        "t3fs_rs_reconstruct_words": [_P, _P, _LL, _I, _I, _LL, _P, _I, _P],
+    },
+    "repair_words": {
+        "t3fs_repair_words": [_P, _P, _LL, _I, _LL, _P, _I, _I, _P],
+    },
+    "rs_bitmatmul": {
+        "t3fs_rs_bitmatmul": [_P, _P, _P, _LL, _I, _I, _LL, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -55,7 +65,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library's path, named by a hash of its source, of every header
+    in csrc/ (a header edit rebuilds whatever may include it) and the flags."""
     h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

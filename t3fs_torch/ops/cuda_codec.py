@@ -1,19 +1,27 @@
-"""The write path's word-packed kernels: twin of the main-path part of
-t3fs/ops/pallas_codec.py (l.248-451).
+"""The codec's CUDA kernels and the paths they serve: twin of
+t3fs/ops/pallas_codec.py (l.248-691) and of its byte-plane _rs_kernel.
 
-Two hand-written CUDA kernels (t3fs_torch/csrc/), each with its plain
-PyTorch version beside it and a launch counter:
+Hand-written CUDA kernels (t3fs_torch/csrc/), each with its plain PyTorch
+version beside it and a launch counter:
 
   crc_words       B1: raw CRC32C of 512-byte segments (128 words) and the
                   chunk combine -- replaces _crc_words_kernel (pallas_codec.py:310)
                   and the combine matmul of make_crc32c_words_raw
   rs_raid6_words  B2: RAID-6 P/Q parity -- replaces _rs_raid6_words_kernel
                   (pallas_codec.py:261)
+  rs_reconstruct_words
+                  B3: RAID-6 decode of 1 or 2 shards on packed words -- replaces
+                  _rs_reconstruct_words_kernel (pallas_codec.py:502)
+  repair_words    B4: one scheduled repair row (Horner over bit planes) --
+                  replaces _repair_words_kernel (pallas_codec.py:587)
+  rs_bitmatmul    B5: byte-plane GF(2) map of any RS(k+m) code, encode or
+                  decode -- replaces _rs_kernel (pallas_codec.py:68)
 
-Data contract (the reference's): shards are the little-endian uint32 view of
-the byte shards (byte j is byte j % 4 of word j // 4), carried as int32
-tensors with the same bits, so numpy's `arr.view(np.int32)` goes in and
-`.numpy().view(np.uint32)` comes out.  CRCs come back the same way.
+Data contract (the reference's): the word kernels take the little-endian
+uint32 view of the byte shards (byte j is byte j % 4 of word j // 4),
+carried as int32 tensors with the same bits, so numpy's `arr.view(np.int32)`
+goes in and `.numpy().view(np.uint32)` comes out.  CRCs come back the same
+way.  B5 takes and returns uint8 byte shards.
 
 A wrapper chooses by the tensor it is given: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (or raises).  There is no
@@ -22,20 +30,32 @@ fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from t3fs_torch import resolve_device
 from t3fs_torch.ops.blocks import pick_block
+from t3fs_torch.ops.repair_program import RepairProgram
 from t3fs_torch.ops.rs import RSCode, default_rs
-from t3fs_torch.ops.tables import SEG_WORDS, CodecTables, codec_tables
+from t3fs_torch.ops.tables import (
+    SEG_WORDS, CodecTables, GFMapTables, RepairTables, codec_tables,
+    decode_tables, encode_map_tables, repair_tables)
 from t3fs_torch.ops.torch_codec import i32, pack_bits_u32, xtimes_i32
 
 # launches of each kernel by its wrapper (kernel launches only, never the
 # plain versions); a run sets them to 0 and reads them to show which kernels
 # served it
-launches: dict[str, int] = {"crc_words": 0, "rs_raid6_words": 0}
+launches: dict[str, int] = {"crc_words": 0, "rs_raid6_words": 0,
+                            "rs_reconstruct_words": 0, "repair_words": 0,
+                            "rs_bitmatmul": 0}
 
 # consecutive segments one warp folds before its partial is written
 _RUN_SEGS = 16
+# the kernels' parameter limits (csrc/*.cu)
+_B3_MAX_K, _B3_MAX_WANT = 32, 2
+_B4_MAX_HELPERS = 32
+_B5_MAX_ROWS, _B5_MAX_TABLE_BYTES = 8, 48 * 1024
 
 
 def reset_launches() -> None:
@@ -43,23 +63,25 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _check_words(x: torch.Tensor, ndim: int, what: str) -> None:
-    if x.dtype != torch.int32:
-        raise TypeError(f"{what}: expected int32 words, got {x.dtype}")
+def _check_words(x: torch.Tensor, ndim: int, what: str,
+                 dtype: torch.dtype = torch.int32) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {x.dtype}")
     if x.dim() != ndim:
         raise ValueError(f"{what}: expected {ndim} dims, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
-def _check_cuda(x: torch.Tensor, tables: CodecTables, what: str) -> None:
+def _check_cuda(x: torch.Tensor, what: str,
+                tables_device: torch.device | None = None) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: tensor on {x.device}; the kernels take "
                          "CUDA tensors and the plain versions CPU tensors")
-    if tables.crc_nibble_table.device != x.device:
-        raise ValueError(f"{what}: tables on {tables.device}, words on {x.device}")
+    if tables_device is not None and tables_device != x.device:
+        raise ValueError(f"{what}: tables on {tables_device}, data on {x.device}")
     if x.data_ptr() % 16:
-        raise ValueError(f"{what}: words must be 16-byte aligned")
+        raise ValueError(f"{what}: data must be 16-byte aligned")
 
 
 def _stream(x: torch.Tensor):
@@ -93,7 +115,7 @@ def crc_seg_words(rows: torch.Tensor, tables: CodecTables) -> torch.Tensor:
                          f"got {tuple(rows.shape)}")
     if rows.device.type == "cpu":
         return crc_seg_words_plain(rows, tables)
-    _check_cuda(rows, tables, "crc_seg_words")
+    _check_cuda(rows, "crc_seg_words", tables.crc_nibble_table.device)
     out = torch.empty(rows.shape[0], dtype=torch.int32, device=rows.device)
     if rows.shape[0] == 0:
         return out
@@ -129,7 +151,7 @@ def crc_words_raw(words: torch.Tensor, tables: CodecTables) -> torch.Tensor:
                          f"({tables.nseg * SEG_WORDS} words), got {W} words")
     if words.device.type == "cpu":
         return crc_words_raw_plain(words, tables)
-    _check_cuda(words, tables, "crc_words_raw")
+    _check_cuda(words, "crc_words_raw", tables.crc_nibble_table.device)
     out = torch.empty(n, dtype=torch.int32, device=words.device)
     if n == 0:
         return out
@@ -168,7 +190,7 @@ def rs_raid6_words(words: torch.Tensor, tables: CodecTables) -> torch.Tensor:
                          f"(k={tables.rs_k}), words are {tuple(words.shape)}")
     if words.device.type == "cpu":
         return rs_raid6_words_plain(words, tables)
-    _check_cuda(words, tables, "rs_raid6_words")
+    _check_cuda(words, "rs_raid6_words", tables.crc_nibble_table.device)
     n, k, W = words.shape
     out = torch.empty(n, 2, W, dtype=torch.int32, device=words.device)
     if n == 0 or W == 0:
@@ -180,6 +202,149 @@ def rs_raid6_words(words: torch.Tensor, tables: CodecTables) -> torch.Tensor:
         words.data_ptr(), out.data_ptr(), n, k, W, tables.rs_poly_low,
         _stream(words)), "rs_raid6_words")
     launches["rs_raid6_words"] += 1
+    return out
+
+
+# --- B3: RAID-6 decode words ------------------------------------------------
+
+def rs_reconstruct_words_plain(words: torch.Tensor, dec: GFMapTables) -> torch.Tensor:
+    """Plain version of rs_reconstruct_words: per present shard, one xtimes
+    ladder up to its column's highest bit, rung b XORed into output r where
+    bit b of the coefficient C[r][s] is set."""
+    acc: list[torch.Tensor | None] = [None] * dec.rows
+    for s in range(dec.k):
+        col = [dec.coeff_rows[r][s] for r in range(dec.rows)]
+        nbits = max(col).bit_length()
+        t = words[:, s]
+        for b in range(nbits):
+            for r in range(dec.rows):
+                if (col[r] >> b) & 1:
+                    acc[r] = t if acc[r] is None else acc[r] ^ t
+            if b + 1 < nbits:
+                t = xtimes_i32(t, dec.poly_low)
+    zero = torch.zeros_like(words[:, 0])
+    return torch.stack([zero if a is None else a for a in acc], dim=1)
+
+
+def rs_reconstruct_words(words: torch.Tensor, dec: GFMapTables) -> torch.Tensor:
+    """(n, k, W) int32 present-shard words -> (n, |want|, W) int32 rebuilt
+    words, by the decode coefficients in `dec`."""
+    _check_words(words, 3, "rs_reconstruct_words")
+    if words.shape[1] != dec.k:
+        raise ValueError(f"rs_reconstruct_words: tables are for k={dec.k}, "
+                         f"words are {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return rs_reconstruct_words_plain(words, dec)
+    _check_cuda(words, "rs_reconstruct_words")
+    if dec.k > _B3_MAX_K or dec.rows > _B3_MAX_WANT:
+        raise ValueError(f"rs_reconstruct_words: the kernel takes k <= "
+                         f"{_B3_MAX_K} and <= {_B3_MAX_WANT} wanted shards, "
+                         f"got k={dec.k}, {dec.rows}")
+    n, k, W = words.shape
+    out = torch.empty(n, dec.rows, W, dtype=torch.int32, device=words.device)
+    if n == 0 or W == 0:
+        return out
+    from t3fs_torch.ops._build import check, library
+
+    lib = library("rs_reconstruct_words")
+    flat = [c for row in dec.coeff_rows for c in row]
+    coeffs = (ctypes.c_uint8 * len(flat))(*flat)
+    check(lib, lib.t3fs_rs_reconstruct_words(
+        words.data_ptr(), out.data_ptr(), n, k, dec.rows, W, coeffs,
+        dec.poly_low, _stream(words)), "rs_reconstruct_words")
+    launches["rs_reconstruct_words"] += 1
+    return out
+
+
+# --- B4: repair words -------------------------------------------------------
+
+def repair_words_plain(words: torch.Tensor, rep: RepairTables) -> torch.Tensor:
+    """Plain version of repair_words: the XOR of the top plane's helpers,
+    then for each lower plane acc = xtimes(acc) ^ XOR(plane)."""
+    top = len(rep.planes) - 1
+    first, *rest = rep.planes[top]
+    acc = words[:, first].clone()
+    for i in rest:
+        acc ^= words[:, i]
+    for b in range(top - 1, -1, -1):
+        acc = xtimes_i32(acc, rep.poly_low)
+        for i in rep.planes[b]:
+            acc ^= words[:, i]
+    return acc
+
+
+def repair_words(words: torch.Tensor, rep: RepairTables) -> torch.Tensor:
+    """(n, h, W) int32 helper words -> (n, W) int32 rebuilt words, by the
+    scheduled repair program in `rep`."""
+    _check_words(words, 3, "repair_words")
+    if words.shape[1] != rep.num_helpers:
+        raise ValueError(f"repair_words: program over {rep.num_helpers} "
+                         f"helpers, words are {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return repair_words_plain(words, rep)
+    _check_cuda(words, "repair_words")
+    if rep.num_helpers > _B4_MAX_HELPERS:
+        raise ValueError(f"repair_words: the kernel takes <= {_B4_MAX_HELPERS} "
+                         f"helpers, got {rep.num_helpers}")
+    n, h, W = words.shape
+    out = torch.empty(n, W, dtype=torch.int32, device=words.device)
+    if n == 0 or W == 0:
+        return out
+    from t3fs_torch.ops._build import check, library
+
+    lib = library("repair_words")
+    masks = (ctypes.c_uint32 * len(rep.plane_masks))(*rep.plane_masks)
+    check(lib, lib.t3fs_repair_words(
+        words.data_ptr(), out.data_ptr(), n, h, W, masks,
+        len(rep.plane_masks) - 1, rep.poly_low, _stream(words)), "repair_words")
+    launches["repair_words"] += 1
+    return out
+
+
+# --- B5: byte-plane bit-matmul ----------------------------------------------
+
+def rs_bitmatmul_plain(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
+    """Plain version of rs_bitmatmul, the TPU kernel's arithmetic: unpack to
+    plane-major 0/1 planes (index b*k + i), one float32 product with the
+    (8r, 8k) bit matrix (sums <= 8k < 2^24, and 0/1 survive TF32, so it is
+    exact), mod 2, repack."""
+    n, k, L = shards.shape
+    x = shards.to(torch.int32)
+    planes = torch.cat([(x >> b) & 1 for b in range(8)], dim=1).float()
+    bits = (torch.matmul(gmap.bitmatrix_t, planes).to(torch.int32) & 1
+            ).reshape(n, 8, gmap.rows, L)
+    out = bits[:, 0]
+    for b in range(1, 8):
+        out = out | (bits[:, b] << b)
+    return out.to(torch.uint8)
+
+
+def rs_bitmatmul(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
+    """(n, k, L) uint8 shards -> (n, rows, L) uint8: the GF(2^8)-linear map
+    in `gmap` (encode parity or a decode pattern), any L."""
+    _check_words(shards, 3, "rs_bitmatmul", torch.uint8)
+    if shards.shape[1] != gmap.k:
+        raise ValueError(f"rs_bitmatmul: tables are for k={gmap.k}, shards "
+                         f"are {tuple(shards.shape)}")
+    if shards.device.type == "cpu":
+        return rs_bitmatmul_plain(shards, gmap)
+    _check_cuda(shards, "rs_bitmatmul", gmap.lut.device)
+    if (gmap.rows > _B5_MAX_ROWS
+            or gmap.lut.numel() * 4 > _B5_MAX_TABLE_BYTES):
+        raise ValueError(f"rs_bitmatmul: the kernel takes <= {_B5_MAX_ROWS} "
+                         f"output shards and <= {_B5_MAX_TABLE_BYTES} bytes "
+                         f"of tables, got {gmap.rows} and {gmap.lut.numel() * 4}")
+    n, k, L = shards.shape
+    out = torch.empty(n, gmap.rows, L, dtype=torch.uint8, device=shards.device)
+    if n == 0 or L == 0:
+        return out
+    from t3fs_torch.ops._build import check, library
+
+    lib = library("rs_bitmatmul")
+    check(lib, lib.t3fs_rs_bitmatmul(
+        shards.data_ptr(), out.data_ptr(), gmap.lut.data_ptr(), n, k,
+        gmap.rows, L, _stream(shards)), "rs_bitmatmul")
+    launches["rs_bitmatmul"] += 1
     return out
 
 
@@ -244,3 +409,94 @@ def make_stripe_encode_step_words(chunk_words: int, k: int = 8, m: int = 2,
         return parity, torch.cat([dcrc.reshape(n, k), pcrc.reshape(n, m)], dim=1)
 
     return step
+
+
+def make_rs_reconstruct_words(present: tuple[int, ...], want: tuple[int, ...],
+                              rs: RSCode | None = None,
+                              device: str | torch.device = "cuda"):
+    """(n, k, W) int32 present-shard words -> (n, |want|, W) int32 rebuilt:
+    any single or double erasure of the RAID-6 m=2 code."""
+    rs = rs or default_rs()
+    if not rs.raid6:
+        raise ValueError("the word decode requires the RAID-6 m=2 code; "
+                         "use make_rs_reconstruct_bytes")
+    if len(present) != rs.k:
+        raise ValueError(f"present {present} must list k={rs.k} shards")
+    dec = decode_tables(present, want, rs, device)
+    return lambda words: rs_reconstruct_words(words, dec)
+
+
+def make_stripe_decode_step_words(chunk_words: int, present: tuple[int, ...],
+                                  want: tuple[int, ...], k: int = 8, m: int = 2,
+                                  device: str | torch.device = "cuda"):
+    """The read path's stripe step: (n, k, chunk_words) int32 present-shard
+    words -> rebuilt (n, |want|, chunk_words) int32 words, crcs
+    (n, k + |want|) int32 (CRC32C of the survivors in `present` order, then
+    of the rebuilt shards in `want` order).
+
+    B3 runs first, then B1 on the survivors and on the rebuilt shards
+    through reshapes of the same tensors, with no concat of the shards."""
+    if m != 2:
+        raise ValueError("the word path is RAID-6 (m=2); use "
+                         "make_rs_reconstruct_bytes")
+    tables = _chunk_tables(chunk_words, k, m, device)
+    rec = make_rs_reconstruct_words(present, want, default_rs(k, m), device)
+    affine = i32(tables.chunk_affine)
+    nwant = len(want)
+
+    def step(words: torch.Tensor):
+        n = words.shape[0]
+        rebuilt = rec(words)
+        scrc = crc_words_raw(words.reshape(n * k, chunk_words), tables) ^ affine
+        rcrc = crc_words_raw(rebuilt.reshape(n * nwant, chunk_words), tables) ^ affine
+        return rebuilt, torch.cat([scrc.reshape(n, k), rcrc.reshape(n, nwant)],
+                                  dim=1)
+
+    return step
+
+
+def make_repair_subshard_words(program: RepairProgram, rs: RSCode | None = None,
+                               device: str | torch.device = "cuda"):
+    """(n, h, W) int32 helper sub-shard words -> (n, W) int32 rebuilt words
+    by the scheduled `program` over its h helpers."""
+    resolve_device(device)
+    rep = repair_tables(program, rs)
+    return lambda words: repair_words(words, rep)
+
+
+def make_repair_step_words(sub_words: int, program: RepairProgram,
+                           device: str | torch.device = "cuda"):
+    """Fused sub-shard repair + CRC: (n, h, sub_words) int32 helper words ->
+    rebuilt (n, sub_words) int32, crcs (n,) int32 (CRC32C of each rebuilt
+    sub-shard; the client stitches them with crc32c_combine).  sub_words
+    must be a multiple of 128 (512-byte segments).  B4, then B1."""
+    tables = _chunk_tables(sub_words, device=device)
+    rep = make_repair_subshard_words(program, device=device)
+    affine = i32(tables.chunk_affine)
+
+    def step(words: torch.Tensor):
+        rebuilt = rep(words)
+        return rebuilt, crc_words_raw(rebuilt, tables) ^ affine
+
+    return step
+
+
+def make_rs_reconstruct_bytes(present: tuple[int, ...], want: tuple[int, ...],
+                              rs: RSCode | None = None,
+                              device: str | torch.device = "cuda"):
+    """(n, k, L) uint8 present shards -> (n, |want|, L) uint8: the byte-plane
+    decode (B5) of any (k, m) code and any L; twin of
+    make_rs_reconstruct_pallas."""
+    rs = rs or default_rs()
+    if len(present) != rs.k:
+        raise ValueError(f"present {present} must list k={rs.k} shards")
+    gmap = decode_tables(present, want, rs, device)
+    return lambda shards: rs_bitmatmul(shards, gmap)
+
+
+def make_rs_encode_bytes(rs: RSCode | None = None,
+                         device: str | torch.device = "cuda"):
+    """(n, k, L) uint8 data shards -> (n, m, L) uint8 parity: the byte-plane
+    encode (B5) of any (k, m) code; twin of make_rs_encode_pallas."""
+    gmap = encode_map_tables(rs or default_rs(), device)
+    return lambda shards: rs_bitmatmul(shards, gmap)

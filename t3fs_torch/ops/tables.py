@@ -16,6 +16,20 @@ builders, the arrays in the JAX package's own formats:
 the JAX package, which is how the tests hold the two against each other --
 into the tensors the kernels and their plain versions read.  The kernels
 take their constants from a CodecTables and nowhere else.
+
+The read side's constants follow the same pattern.  A GF(2^8)-linear map of
+k input shards to r output shards (a decode pattern, or the encode's parity
+rows) is built by `build_decode_arrays` / `build_encode_arrays`:
+
+  gfmatrix     (r, k) u8      RSCode.reconstruct_gfmatrix(present, want)
+                              (or RSCode.parity_rows): kernel B3
+  bitmatrix_t  (8r, 8k) u8    the plane-major, transposed bit matrix
+                              pallas_codec feeds _rs_kernel (l.90-93,
+                              465-468): kernel B5 and its plain version
+  rs_poly      () int64       RSCode.gf.poly
+
+and loaded by `load_gfmap_tables`.  A repair program's `planes` (the port's
+repair_program, or the JAX package's) load with `load_repair_tables`.
 """
 
 from __future__ import annotations
@@ -27,7 +41,8 @@ import torch
 
 from t3fs_torch import resolve_device
 from t3fs_torch.ops.crc32c import default_matrices
-from t3fs_torch.ops.rs import default_rs
+from t3fs_torch.ops.repair_program import RepairProgram
+from t3fs_torch.ops.rs import RSCode, default_rs
 
 SEG_BYTES = 512                 # one CRC segment
 SEG_WORDS = SEG_BYTES // 4      # = 128 uint32 words
@@ -148,3 +163,139 @@ def codec_tables(nseg: int = 1, k: int = 8, m: int = 2,
                  device: str | torch.device = "cuda") -> CodecTables:
     """load_codec_tables(build_codec_tables(...)): the port's own constants."""
     return load_codec_tables(build_codec_tables(nseg, k, m), device)
+
+
+# --- read side: GF(2^8)-linear maps (B3, B5) and repair programs (B4) -------
+
+def plane_major_perm(nbytes: int) -> np.ndarray:
+    """Permutation p with p[b*nbytes + j] = j*8 + b (plane-major -> LSB-first);
+    the port's copy of pallas_codec._plane_major_perm."""
+    b, j = np.meshgrid(np.arange(8), np.arange(nbytes), indexing="ij")
+    return (j * 8 + b).reshape(-1)
+
+
+def plane_major_t(bitmatrix: np.ndarray) -> np.ndarray:
+    """(8k, 8r) LSB-first bit matrix -> (8r, 8k) plane-major transpose:
+    entry [b*r + j, b'*k + i] maps bit b' of input i to bit b of output j."""
+    k8, r8 = bitmatrix.shape
+    pk, pr = plane_major_perm(k8 // 8), plane_major_perm(r8 // 8)
+    return np.ascontiguousarray(bitmatrix[np.ix_(pk, pr)].T)
+
+
+def build_decode_arrays(present, want, rs: RSCode | None = None
+                        ) -> dict[str, np.ndarray]:
+    """The decode constants of one (present, want) pattern of RS(k+m)."""
+    rs = rs or default_rs()
+    present, want = list(present), list(want)
+    return {
+        "gfmatrix": rs.reconstruct_gfmatrix(present, want),
+        "bitmatrix_t": plane_major_t(rs.reconstruct_bitmatrix(present, want)),
+        "rs_poly": np.array(rs.gf.poly, dtype=np.int64),
+    }
+
+
+def build_encode_arrays(rs: RSCode | None = None) -> dict[str, np.ndarray]:
+    """The encode's parity map of RS(k+m) in the same formats."""
+    rs = rs or default_rs()
+    return {
+        "gfmatrix": rs.parity_rows,
+        "bitmatrix_t": plane_major_t(rs.parity_bitmatrix),
+        "rs_poly": np.array(rs.gf.poly, dtype=np.int64),
+    }
+
+
+def bitmatmul_lut(bitmatrix_t: np.ndarray) -> np.ndarray:
+    """The byte-plane kernel's tables, (ceil(r/4), k, 256) int32 flattened.
+
+    Entry [g][i][x] packs, in byte jj, output shard 4g+jj's share of input
+    shard i holding byte value x: the 8x8 block of `bitmatrix_t` from input
+    i's bit planes to output 4g+jj's, applied to the bits of x (mod 2)."""
+    r8, k8 = bitmatrix_t.shape
+    r, k = r8 // 8, k8 // 8
+    M = np.asarray(bitmatrix_t, dtype=np.int64).reshape(8, r, 8, k)  # [b, j, b', i]
+    xbits = (np.arange(256)[:, None] >> np.arange(8)) & 1            # [x, b']
+    bits = np.einsum("xc,bjci->xbji", xbits, M) & 1                  # [x, b, j, i]
+    byts = (bits << np.arange(8)[None, :, None, None]).sum(axis=1)   # [x, j, i]
+    lut = np.zeros((-(-r // 4), k, 256), dtype=np.uint32)
+    for j in range(r):
+        lut[j // 4] |= byts[:, j, :].T.astype(np.uint32) << np.uint32(8 * (j % 4))
+    return lut.reshape(-1).view(np.int32)
+
+
+@dataclass(frozen=True)
+class GFMapTables:
+    """Constants of one GF(2^8)-linear map of k input shards to `rows`
+    output shards.  B3 reads the coefficients, B5 the lookup tables and
+    B5's plain version the bit matrix."""
+
+    k: int
+    rows: int
+    coeff_rows: tuple[tuple[int, ...], ...]  # (rows, k) GF(2^8): B3
+    poly_low: int                    # xtimes reduction byte (0x1D)
+    bitmatrix_t: torch.Tensor        # (8 rows, 8k) f32 plane-major: plain B5
+    lut: torch.Tensor                # (ceil(rows/4) * k * 256,) int32: kernel B5
+
+
+def load_gfmap_tables(arrays: dict[str, np.ndarray],
+                      device: str | torch.device = "cuda") -> GFMapTables:
+    """Arrays in build_decode_arrays' formats (this package's, or the JAX
+    package's reconstruct_gfmatrix / plane-major bit matrix) -> tensors."""
+    dev = resolve_device(device)
+    G = np.ascontiguousarray(arrays["gfmatrix"], dtype=np.uint8)
+    Mt = np.asarray(arrays["bitmatrix_t"], dtype=np.uint8)
+    rows, k = G.shape
+    if Mt.shape != (8 * rows, 8 * k):
+        raise ValueError(f"bitmatrix_t {Mt.shape} does not match gfmatrix "
+                         f"{G.shape}")
+    return GFMapTables(
+        k=k, rows=rows, coeff_rows=tuple(tuple(int(c) for c in row) for row in G),
+        poly_low=int(np.asarray(arrays["rs_poly"])) & 0xFF,
+        bitmatrix_t=torch.from_numpy(Mt.astype(np.float32)).to(dev),
+        lut=torch.from_numpy(bitmatmul_lut(Mt)).to(dev),
+    )
+
+
+def decode_tables(present, want, rs: RSCode | None = None,
+                  device: str | torch.device = "cuda") -> GFMapTables:
+    """load_gfmap_tables(build_decode_arrays(...)): one decode pattern."""
+    return load_gfmap_tables(build_decode_arrays(present, want, rs), device)
+
+
+def encode_map_tables(rs: RSCode | None = None,
+                      device: str | torch.device = "cuda") -> GFMapTables:
+    """load_gfmap_tables(build_encode_arrays(...)): the parity map."""
+    return load_gfmap_tables(build_encode_arrays(rs), device)
+
+
+@dataclass(frozen=True)
+class RepairTables:
+    """One scheduled repair row: plain B4 reads `planes`, kernel B4 the
+    helper bitmask of each plane (bit h of plane_masks[b]: helper h's
+    coefficient has bit b set)."""
+
+    num_helpers: int
+    planes: tuple[tuple[int, ...], ...]
+    plane_masks: tuple[int, ...]
+    poly_low: int
+
+
+def load_repair_tables(num_helpers: int, planes, poly: int) -> RepairTables:
+    """From a RepairProgram's `num_helpers` and `planes` (this package's
+    repair_program, or the JAX package's)."""
+    planes = tuple(tuple(int(i) for i in p) for p in planes)
+    if not planes or not planes[-1]:
+        raise ValueError(f"planes {planes}: the top plane must be nonempty")
+    masks = []
+    for p in planes:
+        if any(not 0 <= i < num_helpers for i in p):
+            raise ValueError(f"plane {p} names a helper outside 0..{num_helpers - 1}")
+        masks.append(sum(1 << i for i in set(p)))
+    return RepairTables(num_helpers=num_helpers, planes=planes,
+                        plane_masks=tuple(masks), poly_low=int(poly) & 0xFF)
+
+
+def repair_tables(program: RepairProgram,
+                  rs: RSCode | None = None) -> RepairTables:
+    """load_repair_tables of one of this package's RepairPrograms."""
+    rs = rs or default_rs()
+    return load_repair_tables(program.num_helpers, program.planes, rs.gf.poly)

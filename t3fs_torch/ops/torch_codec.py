@@ -171,6 +171,24 @@ def make_rs_encode_matmul(rs: RSCode | None = None,
     return encode
 
 
+def make_rs_reconstruct(present: tuple[int, ...], want: tuple[int, ...],
+                        rs: RSCode | None = None,
+                        device: str | torch.device = "cuda"):
+    """(n, k, L) uint8 present shards (rows in `present` order) ->
+    (n, |want|, L) uint8: the bit-matmul decode, any (k, m) and any L."""
+    rs = rs or default_rs()
+    dev = resolve_device(device)
+    W = torch.from_numpy(rs.reconstruct_bitmatrix(list(present), list(want))
+                         .astype(np.float32)).to(dev)              # (8k, 8w)
+
+    def reconstruct(shards: torch.Tensor) -> torch.Tensor:
+        bits = unpack_bits(shards.transpose(1, 2)).float()         # (n, L, 8k)
+        out = pack_bits_u8(_mod2(bits @ W))                        # (n, L, w)
+        return out.transpose(1, 2).contiguous()
+
+    return reconstruct
+
+
 def make_stripe_encode_step(chunk_len: int, k: int = 8, m: int = 2,
                             seg_bytes: int = DEFAULT_SEG_BYTES,
                             device: str | torch.device = "cuda"):

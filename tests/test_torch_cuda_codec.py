@@ -185,7 +185,8 @@ def test_plain_versions_never_count_launches():
     tables = codec_tables(1, device="cpu")
     cc.crc_words_raw(torch.zeros(1, 128, dtype=torch.int32), tables)
     cc.rs_raid6_words(torch.zeros(1, 8, 4, dtype=torch.int32), tables)
-    assert cc.launches == {"crc_words": 0, "rs_raid6_words": 0}
+    assert set(cc.launches) >= {"crc_words", "rs_raid6_words"}
+    assert not any(cc.launches.values())
 
 
 @pytest.fixture
@@ -214,4 +215,4 @@ def test_kernels_match_plain_on_gpu(cuda_device):
     assert torch.equal(cc.rs_raid6_words(odd, tables),
                        cc.rs_raid6_words_plain(odd, tables))
     torch.cuda.synchronize()
-    assert cc.launches == {"crc_words": 2, "rs_raid6_words": 2}
+    assert (cc.launches["crc_words"], cc.launches["rs_raid6_words"]) == (2, 2)

@@ -50,6 +50,7 @@ def _entry_points():
     from t3fs_torch import resolve_device
     from t3fs_torch.client.ec_codec import TorchECCodec
     from t3fs_torch.ops import cuda_codec, tables, torch_codec
+    from t3fs_torch.ops.repair_program import xor_program
     from t3fs_torch.storage.codec_backend import (
         CudaChecksumBackend, make_checksum_backend)
 
@@ -70,14 +71,26 @@ def _entry_points():
         CudaChecksumBackend,
         lambda: make_checksum_backend("tpu"),
         TorchECCodec,
+        # the read side
+        lambda: cuda_codec.make_rs_reconstruct_words(tuple(range(8)), (8,)),
+        lambda: cuda_codec.make_stripe_decode_step_words(
+            128, tuple(range(8)), (8, 9)),
+        lambda: cuda_codec.make_repair_subshard_words(xor_program(3)),
+        lambda: cuda_codec.make_repair_step_words(128, xor_program(3)),
+        lambda: cuda_codec.make_rs_reconstruct_bytes(tuple(range(8)), (9,)),
+        cuda_codec.make_rs_encode_bytes,
+        lambda: torch_codec.make_rs_reconstruct(tuple(range(8)), (9,)),
+        lambda: tables.decode_tables(tuple(range(8)), (9,)),
+        tables.encode_map_tables,
+        lambda: tables.load_gfmap_tables(tables.build_encode_arrays()),
     ]
 
 
-@pytest.mark.parametrize("i", range(16))
+@pytest.mark.parametrize("i", range(26))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 16
+    assert len(entries) == 26
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
