@@ -33,11 +33,29 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      1 MiB shards losing 3 shards (B5)
  10  CUDA-event times of B3, B4, B5 and the fused decode and repair steps
      beside their bounds
- 11  the kernels line, the card line, then the ok line last
+ 11  B6 (CRC bytes) against its plain version: random segments, 64 x 4 MiB
+     rows and 64 x (4 MiB - 5) rows (unaligned), odd lengths against
+     crc32c_ref; the byte encode step (B5 + B6) and the byte decode step
+     (B5 + B6) on RS(6+3) at 12 x 1 MiB against plain
+ 12  the byte-path EC routes: 24 concurrent RS(6+3) encode_verified at
+     1 MiB cells (B5 + B6), 12 RS(6+3) reconstruct_verified losing 3
+     shards (B5 + B6), 12 RAID-6 encode_verified at 1 000 000 bytes (B2 +
+     B6), 24 repair calls at 250 000-byte sub-shards (B4 + B6); every
+     parity, rebuilt byte and CRC checked
+ 13  PM-MSR on RS(8+2) pm-msr at 1 MiB chunks after warmup_msr: 24
+     concurrent msr_encode_verified (B2 + B1), 24 msr_repair of slot 3
+     (B4 + B1), 6 msr_decode_verified losing (0, 9) or (4, 9) (dense
+     product + B1); one stripe of each against encode_np / repair_np /
+     decode_np, every rebuilt byte and CRC checked
+ 14  CUDA-event times of B6 at both row shapes (beside B1's at the same
+     bytes), the byte encode step and the PM-MSR repair step
+ 15  the kernels line, the card line, then the ok line last
 
-Launch counts: the counters are set to 0 just before each main-path run
-(phases 3, 4, 7, 8 and 9) and read just after; launches made to compare a
-kernel with its plain version (phases 1, 2, 5, 6, 10) are not counted.
+Every phase that drives TorchECCodec checks that no call took a plain
+route on the card.  Launch counts: the counters are set to 0 just before
+each main-path run (phases 3, 4, 7, 8, 9, 12 and 13) and read just after;
+launches made to compare a kernel with its plain version (phases 1, 2, 5,
+6, 10, 11 and 14) are not counted.
 """
 
 from __future__ import annotations
@@ -67,6 +85,8 @@ READ_PATTERNS = ((2,), (0, 5), (4, 8))
 K63, M63 = 6, 3                # HDFS RS-6-3-1024k: RS(6+3), 1 MiB cells
 LOST63 = (1, 4, 7)
 LRC_GROUP = 3                  # ECLayout.local_group_size
+ODD_CHUNK = 1_000_000          # a chunk length that is not whole 512-byte segments
+MSR_LOSSES = ((0, 9), (4, 9))  # pm-msr two-loss reads: a data + a parity slot
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -89,6 +109,13 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def expect(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def expect_routes(codec, routes: tuple[str, ...]) -> None:
+    for r in routes:
+        expect(codec.codec_counts.get(r, 0) > 0, f"no call took route {r}")
+    expect(all(r.startswith("cuda-") for r in codec.codec_counts),
+           f"a plain route ran on the card: {codec.codec_counts}")
 
 
 def rand_words(g: torch.Generator, dev: torch.device, *shape: int) -> torch.Tensor:
@@ -314,8 +341,7 @@ async def phase_ec(dev: torch.device, shard_bytes: int, requests: int) -> dict:
         f"codec_counts={codec.codec_counts}, launches={launches}, wall "
         f"{wall:.3f} s; parity max_abs_err={e_par}, crcs max_abs_err={e_crc}")
     expect(e_par == 0 and e_crc == 0, "EC path disagrees with plain")
-    expect(codec.codec_counts.get("cuda-encode-words", 0) > 0,
-           "encode_verified must run the fused word step")
+    expect_routes(codec, ("cuda-encode-words",))
     expect(launches["rs_raid6_words"] > 0 and launches["crc_words"] > 0,
            "EC path must launch B2 and B1")
     return launches
@@ -562,8 +588,7 @@ async def phase_degraded(dev: torch.device, full: np.ndarray,
         f"launches={launches}, wall {wall:.3f} s; wrong stripes {bad_bytes}, "
         f"wrong CRC rows {bad_crcs}")
     expect(bad_bytes == 0 and bad_crcs == 0, "degraded reads disagree")
-    expect(codec.codec_counts.get("cuda-decode-words", 0) > 0,
-           "reconstruct_verified must run the fused decode step")
+    expect_routes(codec, ("cuda-decode-words",))
     expect(codec.batches >= len(READ_PATTERNS), "one group per pattern")
     expect(launches["rs_reconstruct_words"] >= len(READ_PATTERNS)
            and launches["crc_words"] > 0, "degraded reads must launch B3 and B1")
@@ -639,8 +664,7 @@ async def phase_repair(dev: torch.device, full: np.ndarray,
         f"codec_counts={codec.codec_counts}; wrong parities {bad_lrc}, wrong "
         f"CRCs {bad_lrc_crc}")
     expect(bad_lrc == 0 and bad_lrc_crc == 0, "LRC local parities disagree")
-    expect(codec.codec_counts.get("cuda-repair-words", 0) > 0,
-           "repair must run the fused repair step")
+    expect_routes(codec, ("cuda-repair-words",))
     expect(launches["repair_words"] > 0 and launches["crc_words"] > 0,
            "repair must launch B4 and B1")
     return launches
@@ -677,8 +701,7 @@ async def phase_nonraid6(dev: torch.device, g: torch.Generator) -> dict:
         f"{codec.batches} groups, codec_counts={codec.codec_counts}, "
         f"launches={launches}, wall {wall:.3f} s; wrong stripes {bad}")
     expect(bad == 0, "RS(6+3) reconstruct disagrees")
-    expect(codec.codec_counts.get("cuda-bitmatmul", 0) > 0,
-           "RS(6+3) reconstruct must run the byte-plane kernel")
+    expect_routes(codec, ("cuda-bitmatmul",))
     expect(launches["rs_bitmatmul"] > 0, "RS(6+3) reconstruct must launch B5")
     return launches
 
@@ -771,6 +794,345 @@ def phase_read_times(dev: torch.device, g: torch.Generator) -> dict:
     return out
 
 
+# --- phase 11: B6 and the byte steps against plain ----------------------------
+
+def plain_crc_bytes(rows: torch.Tensor, group: int = 16) -> torch.Tensor:
+    """(n, L) uint8 -> (n,) int32 CRC32C by the plain version of B6, in
+    groups of rows (it expands every byte to 8 floats)."""
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.crc32c import default_matrices
+    from t3fs_torch.ops.tables import crc_bytes_tables, crc_nseg
+    from t3fs_torch.ops.torch_codec import i32
+
+    L = rows.shape[1]
+    tables = crc_bytes_tables(crc_nseg(L), rows.device)
+    raw = torch.cat([cc.crc_bytes_raw_plain(part, tables) for part in rows.split(group)])
+    return raw ^ i32(default_matrices().affine_const(L))
+
+
+def rand_bytes(g: torch.Generator, dev: torch.device, *shape: int) -> torch.Tensor:
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device=dev, generator=g)
+
+
+def phase_crc_bytes(dev: torch.device, g: torch.Generator) -> int:
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.crc32c import crc32c_ref
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.tables import (
+        crc_bytes_tables, crc_nseg, decode_tables, encode_map_tables)
+
+    errs = {}
+    t1 = crc_bytes_tables(1, dev)
+    segs = rand_bytes(g, dev, 4096, 512)
+    errs["seg"] = max_abs_err(cc.crc_seg_bytes(segs, t1), cc.crc_seg_bytes_plain(segs, t1))
+    log(f"[11] crc_seg_bytes (4096, 512): max_abs_err={errs['seg']}")
+    subset = sorted({0, CHUNKS // 3, CHUNKS - 1})
+    for L in (CHUNK_BYTES, CHUNK_BYTES - 5):
+        rows = rand_bytes(g, dev, CHUNKS, L)
+        tables = crc_bytes_tables(crc_nseg(L), dev)
+        e = max_abs_err(cc.crc_bytes_raw(rows, tables)[subset],
+                        cc.crc_bytes_raw_plain(rows[subset], tables))
+        log(f"[11] crc_bytes_raw ({CHUNKS}, {L}): max_abs_err={e} on rows {subset} "
+            f"(row r starts at byte r * {L}{': unaligned' if L % 16 else ''})")
+        errs[L] = e
+    rng = np.random.default_rng(SEED + 11)
+    for n in (1, 9, 513, (129 << 10) + 3):
+        p = rng.bytes(n)
+        row = torch.frombuffer(bytearray(p), dtype=torch.uint8).reshape(1, n).to(dev)
+        crc = int(u32(cc.make_crc32c_bytes(n, dev)(row)).item())
+        errs[n] = abs(crc - crc32c_ref(p))
+        log(f"[11] crc32c of {n} bytes: {crc:#010x}, crc32c_ref {crc32c_ref(p):#010x}")
+
+    rs63 = default_rs(K63, M63)
+    n, L = STRIPES, SHARD_BYTES
+    shards = rand_bytes(g, dev, n, K63, L)
+    parity, crcs = cc.make_stripe_encode_step_fast(L, K63, M63, dev)(shards)
+    plain_par = cc.rs_bitmatmul_plain(shards, encode_map_tables(rs63, dev))
+    plain_crc = torch.cat([plain_crc_bytes(shards.reshape(n * K63, L)).reshape(n, K63),
+                           plain_crc_bytes(plain_par.reshape(n * M63, L)).reshape(n, M63)],
+                          dim=1)
+    errs["encode step"] = max(max_abs_err(parity, plain_par), max_abs_err(crcs, plain_crc))
+    present = present_of(LOST63, K63 + M63, K63)
+    full = torch.cat([shards, parity], dim=1)
+    rows = full[:, list(present)].contiguous()
+    rebuilt, dcrcs = cc.make_stripe_decode_step_bytes(L, present, LOST63, K63, M63, dev)(rows)
+    plain_reb = cc.rs_bitmatmul_plain(rows, decode_tables(present, LOST63, rs63, dev))
+    want_crc = plain_crc[:, list(present + LOST63)]
+    errs["decode step"] = max(max_abs_err(rebuilt, plain_reb),
+                              max_abs_err(rebuilt, full[:, list(LOST63)]),
+                              max_abs_err(dcrcs, want_crc))
+    log(f"[11] byte steps RS({K63}+{M63}) at ({n}, {K63}, {L}): encode (B5 + B6) and "
+        f"decode want={LOST63} (B5 + B6) against plain: max_abs_err "
+        f"{errs['encode step']} / {errs['decode step']}")
+    worst = max(errs.values())
+    expect(worst == 0, f"B6 or a byte step disagrees with plain: {errs}")
+    return worst
+
+
+# --- phase 12: the byte-path EC routes --------------------------------------
+
+def add_launches(total: dict, part: dict) -> None:
+    for name, v in part.items():
+        total[name] = total.get(name, 0) + v
+
+
+async def phase_byte_routes(dev: torch.device) -> dict:
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.codec import crc32c_combine
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.torch_codec import make_rs_encode_matmul
+
+    rng = np.random.default_rng(SEED + 12)
+    codec = TorchECCodec(device=dev)
+    total: dict[str, int] = {}
+
+    async def run(label: str, calls):
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*calls)
+        wall = time.perf_counter() - t0
+        launches = dict(cc.launches)
+        add_launches(total, launches)
+        log(f"[12] {label}: wall {wall:.3f} s (first call's table build included), "
+            f"launches={launches}")
+        return outs, launches
+
+    # RS(6+3) stripe writes: B5 + B6
+    data = [rng.integers(0, 256, (K63, SHARD_BYTES), dtype=np.uint8) for _ in range(24)]
+    outs, launches = await run(f"24 concurrent encode_verified RS({K63}+{M63}) at "
+                               f"{SHARD_BYTES >> 10} KiB",
+                               [codec.encode_verified(d, K63, M63) for d in data])
+    expect(launches["rs_bitmatmul"] > 0 and launches["crc_bytes"] > 0,
+           "RS(6+3) writes must launch B5 and B6")
+    full63 = np.stack([np.concatenate([d, o[0]]) for d, o in zip(data, outs)])
+    enc = make_rs_encode_matmul(default_rs(K63, M63), dev)      # independent of B5
+    want_par = torch.cat([enc(torch.from_numpy(full63[i:i + 4, :K63]).to(dev)).cpu()
+                          for i in range(0, len(data), 4)]).numpy()
+    crcs63 = plain_shard_crcs(full63, dev)                      # plain B1
+    bad_par = int((full63[:, K63:] != want_par).any(axis=(1, 2)).sum())
+    bad_crc = sum(not np.array_equal(o[1], c) for o, c in zip(outs, crcs63))
+    log(f"[12] RS({K63}+{M63}) writes: wrong parity stripes {bad_par}, wrong CRC "
+        f"rows {bad_crc} (parity by the plain bit-matmul, CRCs by plain B1)")
+    expect(bad_par == 0 and bad_crc == 0, "RS(6+3) writes disagree")
+
+    # RS(6+3) degraded reads losing three shards: B5 + B6
+    present = present_of(LOST63, K63 + M63, K63)
+    reqs = list(range(12))
+    outs, launches = await run(
+        f"12 concurrent reconstruct_verified RS({K63}+{M63}) want={LOST63}",
+        [codec.reconstruct_verified(np.ascontiguousarray(full63[i, list(present)]),
+                                    present, LOST63, K63, M63) for i in reqs])
+    expect(launches["rs_bitmatmul"] > 0 and launches["crc_bytes"] > 0,
+           "RS(6+3) reads must launch B5 and B6")
+    bad = sum(not (np.array_equal(r, full63[i, list(LOST63)])
+                   and np.array_equal(c, crcs63[i, list(present + LOST63)]))
+              for i, (r, c) in zip(reqs, outs))
+    log(f"[12] RS({K63}+{M63}) degraded reads: wrong stripes or CRC rows {bad}")
+    expect(bad == 0, "RS(6+3) degraded reads disagree")
+
+    # RAID-6 writes at a length that is not whole segments: B2 + B6
+    L6 = ODD_CHUNK
+    data = [rng.integers(0, 256, (K, L6), dtype=np.uint8) for _ in range(STRIPES)]
+    outs, launches = await run(f"{STRIPES} concurrent encode_verified RS({K}+{M}) at "
+                               f"{L6} bytes",
+                               [codec.encode_verified(d, K, M) for d in data])
+    expect(launches["rs_raid6_words"] > 0 and launches["crc_bytes"] > 0,
+           "RAID-6 writes at odd lengths must launch B2 and B6")
+    full6 = np.stack([np.concatenate([d, o[0]]) for d, o in zip(data, outs)])
+    words = torch.from_numpy(full6[:, :K].copy().view(np.int32)).to(dev)
+    from t3fs_torch.ops.tables import codec_tables
+
+    want_par = cc.rs_raid6_words_plain(words, codec_tables(1, K, M, device=dev))
+    bad_par = max_abs_err(torch.from_numpy(full6[:, K:].copy().view(np.int32)).to(dev),
+                          want_par)
+    crcs6 = plain_crc_bytes(torch.from_numpy(full6).to(dev).reshape(-1, L6)
+                            ).cpu().numpy().view(np.uint32).reshape(STRIPES, K + M)
+    bad_crc = sum(not np.array_equal(o[1], c) for o, c in zip(outs, crcs6))
+    log(f"[12] RAID-6 writes at {L6} bytes: parity max_abs_err={bad_par} (plain B2), "
+        f"wrong CRC rows {bad_crc} (plain B6)")
+    expect(bad_par == 0 and bad_crc == 0, "RAID-6 odd-length writes disagree")
+
+    # repair at sub-shards that are not whole segments: B4 + B6
+    slots, coeffs = repair_plan(LOST_SLOT)
+    sub = L6 // SUBSHARDS
+    chunks = STRIPES // 2                  # 6 chunks x 4 sub-shards: 24 calls
+    jobs = [np.ascontiguousarray(full6[i, slots, q * sub:(q + 1) * sub])
+            for i in range(chunks) for q in range(SUBSHARDS)]
+    outs, launches = await run(f"{len(jobs)} repair calls at {sub}-byte sub-shards "
+                               f"of slot {LOST_SLOT}",
+                               [codec.repair(rows, coeffs, K, M) for rows in jobs])
+    expect(launches["repair_words"] > 0 and launches["crc_bytes"] > 0,
+           "odd-length repair must launch B4 and B6")
+    bad = 0
+    for i in range(chunks):
+        parts = outs[i * SUBSHARDS:(i + 1) * SUBSHARDS]
+        crc = int(parts[0][1])
+        for _p, c in parts[1:]:
+            crc = crc32c_combine(crc, int(c), sub)
+        ok = (np.array_equal(np.concatenate([p for p, _c in parts]), full6[i, LOST_SLOT])
+              and crc == int(crcs6[i, LOST_SLOT]))
+        bad += not ok
+    log(f"[12] odd-length repair: wrong chunks or stitched CRCs {bad}; "
+        f"codec_counts={codec.codec_counts}")
+    expect(bad == 0, "odd-length repairs disagree")
+    await codec.close()
+    expect_routes(codec, ("cuda-encode-bytes", "cuda-decode-bytes",
+                          "cuda-repair-words-odd"))
+    return total
+
+
+# --- phase 13: PM-MSR -------------------------------------------------------
+
+async def phase_msr(dev: torch.device) -> dict:
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.msr import default_msr
+
+    code = default_msr(K, M)
+    L = SHARD_BYTES
+    sub = L // code.alpha
+    rng = np.random.default_rng(SEED + 13)
+    data = [rng.integers(0, 256, (K, L), dtype=np.uint8) for _ in range(24)]
+    codec = TorchECCodec(device=dev)
+    codec.warmup_msr([LOST_SLOT], L, K, M, batch_sizes=(24,))
+    total: dict[str, int] = {}
+
+    async def run(label: str, calls):
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*calls)
+        wall = time.perf_counter() - t0
+        launches = dict(cc.launches)
+        add_launches(total, launches)
+        log(f"[13] {label}: wall {wall:.3f} s, launches={launches}")
+        return outs, launches
+
+    outs, launches = await run(f"24 concurrent msr_encode_verified RS({K}+{M}) pm-msr "
+                               f"at {L >> 10} KiB (after warmup_msr)",
+                               [codec.msr_encode_verified(d, K, M) for d in data])
+    expect(launches["rs_raid6_words"] > 0 and launches["crc_words"] > 0,
+           "pm-msr writes must launch B2 and B1")
+    stored = np.stack([np.concatenate([d, o[0]]) for d, o in zip(data, outs)])
+    crcs = plain_shard_crcs(stored, dev)                          # plain B1
+    bad_crc = sum(not np.array_equal(o[1], c) for o, c in zip(outs, crcs))
+    expect(np.array_equal(outs[0][0], code.encode_np(data[0])),
+           "pm-msr stripe 0 parity != encode_np")
+    log(f"[13] pm-msr writes: stripe 0 parity == encode_np; wrong CRC rows {bad_crc}")
+    expect(bad_crc == 0, "pm-msr write CRCs disagree")
+
+    sch = code.schedule(LOST_SLOT)
+    helpers = [np.ascontiguousarray(
+        stored[i, list(sch.helpers)].reshape(code.d, code.alpha, sub)[:, list(sch.selected)]
+        .reshape(code.d, -1)) for i in range(len(data))]
+    outs, launches = await run(f"{len(helpers)} msr_repair of slot {LOST_SLOT} over "
+                               f"({code.d}, {helpers[0].shape[1] >> 10} KiB) helpers",
+                               [codec.msr_repair(h, LOST_SLOT, K, M) for h in helpers])
+    expect(launches["repair_words"] > 0 and launches["crc_words"] > 0,
+           "pm-msr repair must launch B4 and B1")
+    expect(np.array_equal(outs[0][0], code.repair_np(
+        LOST_SLOT, helpers[0].reshape(code.d, sch.npl, sub))), "repair 0 != repair_np")
+    bad = sum(not (np.array_equal(o, stored[i, LOST_SLOT]) and int(c) == int(crcs[i, LOST_SLOT]))
+              for i, (o, c) in enumerate(outs))
+    log(f"[13] pm-msr repair: chunk 0 == repair_np; wrong chunks or CRCs {bad} "
+        "(every chunk against the stored shard, which parity errors would break)")
+    expect(bad == 0, "pm-msr repairs disagree")
+
+    jobs = [(i, MSR_LOSSES[i % len(MSR_LOSSES)]) for i in range(6)]
+    outs, launches = await run(
+        f"6 msr_decode_verified losing {MSR_LOSSES}",
+        [codec.msr_decode_verified(np.ascontiguousarray(stored[i, list(present_of(lost, K + M, K))]),
+                                   present_of(lost, K + M, K), lost, K, M)
+         for i, lost in jobs])
+    expect(launches["crc_words"] > 0, "pm-msr decode must launch B1")
+    p0 = present_of(MSR_LOSSES[0], K + M, K)
+    expect(np.array_equal(outs[0][0], code.decode_np(p0, stored[0, list(p0)], MSR_LOSSES[0])),
+           "decode 0 != decode_np")
+    bad = sum(not (np.array_equal(r, stored[i, list(lost)])
+                   and np.array_equal(c, crcs[i, list(present_of(lost, K + M, K) + lost)]))
+              for (i, lost), (r, c) in zip(jobs, outs))
+    log(f"[13] pm-msr decode: stripe 0 == decode_np; wrong stripes or CRC rows {bad}; "
+        f"codec_counts={codec.codec_counts}")
+    expect(bad == 0, "pm-msr decodes disagree")
+    await codec.close()
+    expect_routes(codec, ("cuda-msr-encode", "cuda-msr-repair", "cuda-msr-decode"))
+    return total
+
+
+# --- phase 14: byte-path and PM-MSR times -----------------------------------
+
+def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops import msr_codec as mc
+    from t3fs_torch.ops.msr import default_msr
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.tables import crc_bytes_tables, crc_nseg, encode_map_tables
+
+    out = {}
+    for label, L in (("64 x 4 MiB", CHUNK_BYTES),
+                     ("64 x (4 MiB - 5), rows unaligned", CHUNK_BYTES - 5)):
+        rows = rand_bytes(g, dev, CHUNKS, L)
+        tables = crc_bytes_tables(crc_nseg(L), dev)
+        out[f"crc_bytes {label}"] = {
+            **kernel_times(lambda: cc.crc_bytes_raw(rows, tables)),
+            "plain_ms": time_ms(lambda: cc.crc_bytes_raw_plain(rows, tables), 2, 1),
+            "bound_ms": (rows.numel() + 4 * CHUNKS) / HBM_BYTES_PER_S * 1e3,
+            "shape": f"({CHUNKS}, {L}) u8",
+        }
+        del rows
+    log(f"[14] B1 (crc_words) at the same bytes, from phase 5: {b1['ms'] * 1e3:.1f} us")
+
+    rs63 = default_rs(K63, M63)
+    shards = rand_bytes(g, dev, STRIPES, K63, SHARD_BYTES)
+    step = cc.make_stripe_encode_step_fast(SHARD_BYTES, K63, M63, dev)
+    enc = encode_map_tables(rs63, dev)
+
+    def plain_step():
+        par = cc.rs_bitmatmul_plain(shards, enc)
+        plain_crc_bytes(shards.reshape(-1, SHARD_BYTES), group=1 << 30)
+        plain_crc_bytes(par.reshape(-1, SHARD_BYTES), group=1 << 30)
+
+    out[f"byte encode step RS({K63}+{M63})"] = {
+        **kernel_times(lambda: step(shards)),
+        "plain_ms": time_ms(plain_step, 2, 1),
+        "bound_ms": (K63 + M63) * SHARD_BYTES * STRIPES / HBM_BYTES_PER_S * 1e3,
+        "shape": f"({STRIPES}, {K63}, {SHARD_BYTES}) u8",
+    }
+    del shards
+
+    code = default_msr(K, M)
+    n, beta_len = 24, SHARD_BYTES // 2
+    helpers = rand_bytes(g, dev, n, code.d, beta_len)
+    step = mc.make_msr_repair_step(code, LOST_SLOT, SHARD_BYTES, dev)
+
+    def plain_rows(chunk_len, device):
+        from t3fs_torch.ops.tables import codec_tables
+        from t3fs_torch.ops.torch_codec import i32
+
+        t = codec_tables(chunk_len // 512, device=device)
+        return lambda r: cc.crc_words_raw_plain(r.view(torch.int32), t) ^ i32(t.chunk_affine)
+
+    def with_plain_kernels(fn):
+        """Run fn with the step's B4 and B1 swapped for their plain versions."""
+        kernels = (cc.repair_words, mc.make_crc32c_rows)
+        cc.repair_words, mc.make_crc32c_rows = cc.repair_words_plain, plain_rows
+        try:
+            return fn()
+        finally:
+            cc.repair_words, mc.make_crc32c_rows = kernels
+
+    plain = with_plain_kernels(
+        lambda: mc.make_msr_repair_step(code, LOST_SLOT, SHARD_BYTES, dev))
+    out[f"msr repair step slot {LOST_SLOT}"] = {
+        **kernel_times(lambda: step(helpers)),
+        "plain_ms": time_ms(lambda: with_plain_kernels(lambda: plain(helpers)), 2, 1),
+        "bound_ms": n * (code.d * beta_len + SHARD_BYTES) / HBM_BYTES_PER_S * 1e3,
+        "shape": f"({n}, {code.d}, {beta_len}) u8 -> ({n}, {SHARD_BYTES})",
+    }
+    log_times(14, out)
+    return out
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -814,11 +1176,16 @@ def main() -> int:
     del full
     main_runs.append(asyncio.run(phase_nonraid6(dev, g)))
     read_times = phase_read_times(dev, g)
+    e_bytes = phase_crc_bytes(dev, g)
+    main_runs.append(asyncio.run(phase_byte_routes(dev)))
+    main_runs.append(asyncio.run(phase_msr(dev)))
+    byte_times = phase_byte_times(dev, g, times["crc_words"])
 
     from t3fs_torch.ops.cuda_codec import launches as _names
 
-    # phases 7 and 8 check every CRC the fused steps returned against the
-    # plain B1 and every rebuilt byte, so a mismatch there already failed
+    # phases 7, 8, 12 and 13 check every CRC the fused steps returned
+    # against plain B1 or B6 and every rebuilt byte, so a mismatch there
+    # already failed
     meta = {
         "crc_words": ("t3fs_torch/csrc/crc_words.cu",
                       "t3fs/ops/pallas_codec.py:310", max(e_crc, e_step_crc),
@@ -836,6 +1203,9 @@ def main() -> int:
         "rs_bitmatmul": ("t3fs_torch/csrc/rs_bitmatmul.cu",
                          "t3fs/ops/pallas_codec.py:68", read_errs["rs_bitmatmul"],
                          read_times[f"rs_bitmatmul RS(6+3) decode want={LOST63}"]),
+        "crc_bytes": ("t3fs_torch/csrc/crc_bytes.cu",
+                      "t3fs/ops/pallas_codec.py:116", e_bytes,
+                      byte_times["crc_bytes 64 x 4 MiB"]),
     }
     kernels = []
     for name in _names:

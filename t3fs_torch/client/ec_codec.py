@@ -3,14 +3,21 @@
 ECStorageClient awaits `encode_verified` on every stripe write,
 `reconstruct_verified` on every degraded read or full-k rebuild, and
 `repair` per sub-shard of a reduced-read repair (and for the LRC local XOR
-parities of a write).  TorchECCodec micro-batches concurrent requests that
-share a key into one device call, exactly as the reference ECCodec does:
+parities of a write); on a pm-msr layout it awaits `msr_encode_verified`,
+`msr_repair` and `msr_decode_verified` instead.  TorchECCodec micro-batches
+concurrent requests that share a key into one device call, exactly as the
+reference ECCodec does.  Every route runs the cuda_codec wrappers, which
+launch the kernels on a CUDA codec and run their plain versions on a CPU
+codec:
 
   ("enc", k, m, L)   RAID-6 and L % 4 == 0: B2 (make_rs_encode_words)
                                                               -> "cuda-words"
+                     otherwise B5 (make_rs_encode_bytes)  -> "cuda-bitmatmul"
   ("encv", k, m, L)  RAID-6 and L % 512 == 0: the fused stripe step, B2
                      then B1 (make_stripe_encode_step_words)
                                                         -> "cuda-encode-words"
+                     otherwise B2 (RAID-6, L % 4 == 0) or B5, then B6
+                     (make_stripe_encode_step_bytes)    -> "cuda-encode-bytes"
   ("rec", present, want, k, m, L)
                      RAID-6 and L % 4 == 0: B3 (make_rs_reconstruct_words)
                                                           -> "cuda-rec-words"
@@ -19,16 +26,25 @@ share a key into one device call, exactly as the reference ECCodec does:
   ("recv", present, want, k, m, L)
                      RAID-6 and L % 512 == 0: the fused decode step, B3 then
                      B1 (make_stripe_decode_step_words) -> "cuda-decode-words"
+                     otherwise B5 then B6 (make_stripe_decode_step_bytes)
+                                                        -> "cuda-decode-bytes"
   ("rep", coeffs, k, m, L)
                      L % 512 == 0: the fused repair step, B4 then B1
                      (make_repair_step_words)           -> "cuda-repair-words"
-                     otherwise B4 on the words padded to a whole word, CRC by
-                     torch_codec.make_crc32c_batch  -> "cuda-repair-words-odd"
-  otherwise          the plain PyTorch bit-matmul path (torch_codec), as the
-                     JAX package runs XLA there           -> "torch-bitmatmul"
+                     otherwise B4 on the rows padded to a whole word, then
+                     B6 (make_repair_step_bytes)    -> "cuda-repair-words-odd"
+  ("mencv", k, m, L) pm-msr encode: stage B on B2, CRCs on B1 or B6
+                     (msr_codec.make_msr_encode_step)    -> "cuda-msr-encode"
+  ("mrep", f, k, m, L)
+                     pm-msr single-loss repair of slot f: stage B on B4
+                     twice, CRC on B1 or B6 (make_msr_repair_step)
+                                                         -> "cuda-msr-repair"
+  ("mdecv", present, want, k, m, L)
+                     pm-msr multi-loss decode: the dense GF(2) product, CRCs
+                     on B1 or B6 (make_msr_decode_step)  -> "cuda-msr-decode"
 
-The PM-MSR keys are a later slice of the port; their methods raise
-NotImplementedError naming the ROADMAP.md item.
+B5 takes at most 8 output shards and 48 KiB of tables; a code beyond that
+runs on a CPU codec (the plain version) and raises on a CUDA one.
 """
 
 from __future__ import annotations
@@ -48,20 +64,6 @@ from t3fs_torch.ops.rs import default_rs
 from t3fs_torch.utils.aio import reap_task
 
 log = logging.getLogger("t3fs_torch.client.ec_codec")
-
-# the ROADMAP.md item that ports each key not carried yet
-NOT_PORTED = {
-    "mencv": "ROADMAP.md Queue A item 7 (PM-MSR codec)",
-    "mrep": "ROADMAP.md Queue A item 7 (PM-MSR codec)",
-    "mdecv": "ROADMAP.md Queue A item 7 (PM-MSR codec)",
-    "warmup_msr": "ROADMAP.md Queue A item 7 (PM-MSR codec)",
-}
-
-
-def _not_ported(key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TorchECCodec: '{key}' is not ported yet; see {NOT_PORTED[key]}")
-
 
 @dataclass
 class _Pending:
@@ -84,8 +86,9 @@ class TorchECCodec:
     """Batched device codec for EC stripes with a per-shape function cache.
 
     kind keys: ("enc", k, m, L), ("encv", k, m, L), ("rec", present, want,
-    k, m, L), ("recv", present, want, k, m, L) and ("rep", coeffs, k, m, L);
-    requests under one key stack into a single call."""
+    k, m, L), ("recv", present, want, k, m, L), ("rep", coeffs, k, m, L),
+    ("mencv", k, m, L), ("mrep", f, k, m, L) and ("mdecv", present, want,
+    k, m, L); requests under one key stack into a single call."""
 
     def __init__(self, max_batch: int = 32, max_wait_us: int = 300,
                  device: str | torch.device = "cuda"):
@@ -97,10 +100,8 @@ class TorchECCodec:
         self._pool = ThreadPoolExecutor(1, thread_name_prefix="t3fs-torch-ec")
         self._fns: dict[tuple, Callable] = {}
         self._closed = False
-        # observability: which implementation served each call ("cuda-words"
-        # | "cuda-encode-words" | "cuda-rec-words" | "cuda-bitmatmul" |
-        # "cuda-decode-words" | "cuda-repair-words" | "cuda-repair-words-odd"
-        # | "torch-bitmatmul"); warmups count too
+        # observability: which route served each call (the names in the
+        # module doc); warmups count too
         self.codec_counts: dict[str, int] = {}
         self.last_codec: str | None = None
         self.flushes = 0                 # worker flushes (one per drained batch)
@@ -153,14 +154,35 @@ class TorchECCodec:
         key = ("rep", tuple(int(c) for c in coeffs), k, m, L)
         return await self._submit(key, helper_rows)
 
-    async def msr_encode_verified(self, data_shards, k, m):
-        raise _not_ported("mencv")
+    async def msr_encode_verified(self, data_shards: np.ndarray, k: int,
+                                  m: int) -> tuple[np.ndarray, np.ndarray]:
+        """(k, L) uint8 raw data shards -> (parity (m, L) uint8,
+        crcs (k+m,) uint32) under the pm-msr coupled generator; the data
+        shards stay raw bytes (systematic)."""
+        L = data_shards.shape[-1]
+        return await self._submit(("mencv", k, m, L), data_shards)
 
-    async def msr_repair(self, helper_rows, failed_slot, k=8, m=2):
-        raise _not_ported("mrep")
+    async def msr_repair(self, helper_rows: np.ndarray, failed_slot: int,
+                         k: int = 8, m: int = 2
+                         ) -> tuple[np.ndarray, np.uint32]:
+        """(d, beta_len) uint8 helper projections -> (rebuilt chunk (L,)
+        uint8, crc uint32).  helper_rows holds, for each of the d = k+m-1
+        survivors in ascending slot order, its beta selected sub-chunks
+        concatenated in ascending plane order; L = 2 * beta_len."""
+        beta_len = helper_rows.shape[-1]
+        key = ("mrep", int(failed_slot), k, m, 2 * beta_len)
+        return await self._submit(key, helper_rows)
 
-    async def msr_decode_verified(self, present_rows, present, want, k, m):
-        raise _not_ported("mdecv")
+    async def msr_decode_verified(self, present_rows: np.ndarray,
+                                  present: tuple[int, ...],
+                                  want: tuple[int, ...], k: int, m: int
+                                  ) -> tuple[np.ndarray, np.ndarray]:
+        """(k, L) uint8 present pm-msr shards -> (rebuilt (len(want), L)
+        uint8, crcs (k + len(want),) uint32): the multi-loss / degraded
+        full-k path (exactly k survivor shards, never more than RS)."""
+        L = present_rows.shape[-1]
+        return await self._submit(("mdecv", tuple(present), tuple(want),
+                                   k, m, L), present_rows)
 
     def warmup_decode(self, patterns: list[tuple[tuple[int, ...],
                                                  tuple[int, ...]]],
@@ -182,8 +204,15 @@ class TorchECCodec:
                        (nb, len(cs), L))
                       for cs in coeff_rows for nb in batch_sizes])
 
-    def warmup_msr(self, slots, L, k=8, m=2, batch_sizes=(1,)):
-        raise _not_ported("warmup_msr")
+    def warmup_msr(self, slots: list[int], L: int, k: int = 8, m: int = 2,
+                   batch_sizes: tuple[int, ...] = (1,)) -> None:
+        """The pm-msr twin of warmup_repair: the coupled encode and the
+        projection repair of each failed slot in `slots`, one job per
+        (key, batch size)."""
+        keys = [(("mencv", k, m, L), (k, L))]
+        keys += [(("mrep", int(f), k, m, L), (k + m - 1, L // 2)) for f in slots]
+        self._warmup([(key, (nb, *shape)) for key, shape in keys
+                      for nb in batch_sizes])
 
     def _warmup(self, jobs: list[tuple[tuple, tuple[int, ...]]]) -> None:
         from concurrent.futures import CancelledError
@@ -303,9 +332,10 @@ class TorchECCodec:
                      "encv": self._build_encode_verified,
                      "rec": self._build_reconstruct,
                      "recv": self._build_reconstruct_verified,
-                     "rep": self._build_repair}.get(key[0])
-            if build is None:
-                raise _not_ported(key[0])
+                     "rep": self._build_repair,
+                     "mencv": self._build_msr_encode_verified,
+                     "mrep": self._build_msr_repair,
+                     "mdecv": self._build_msr_decode_verified}[key[0]]
             fn = build(key)
             self._fns[key] = fn
         return fn
@@ -317,6 +347,18 @@ class TorchECCodec:
     def _words(self, stacked: np.ndarray) -> torch.Tensor:
         """(n, k, L) uint8 -> (n, k, L/4) int32 words on the device."""
         return torch.from_numpy(stacked.view(np.int32)).to(self.device)
+
+    def _bytes(self, stacked: np.ndarray) -> torch.Tensor:
+        """(n, ..., L) uint8 -> the same bytes on the device."""
+        return torch.from_numpy(stacked).to(self.device)
+
+    def _bytes_step(self, codec: str, step: Callable) -> Callable:
+        """A byte-path step ((n, ...) uint8 -> (shards, crcs)) on numpy."""
+        def run(stacked: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+            self._count(codec)
+            shards, crcs = step(self._bytes(stacked))
+            return shards.cpu().numpy(), crcs.cpu().numpy().view(np.uint32)
+        return run
 
     def _build_encode(self, key: tuple) -> Callable:
         _kind, k, m, L = key
@@ -332,14 +374,15 @@ class TorchECCodec:
                 return out.view(np.uint8).reshape(stacked.shape[0], m, L)
             return encode_words
 
-        from t3fs_torch.ops.torch_codec import make_rs_encode
+        # codes that are not RAID-6, and odd lengths: the byte-plane kernel
+        from t3fs_torch.ops.cuda_codec import make_rs_encode_bytes
 
-        enc = make_rs_encode(rs, device=self.device)
+        enc = make_rs_encode_bytes(rs, device=self.device)
 
-        def encode_torch(stacked: np.ndarray) -> np.ndarray:
-            self._count("torch-bitmatmul")
-            return enc(torch.from_numpy(stacked).to(self.device)).cpu().numpy()
-        return encode_torch
+        def encode_bytes(stacked: np.ndarray) -> np.ndarray:
+            self._count("cuda-bitmatmul")
+            return enc(self._bytes(stacked)).cpu().numpy()
+        return encode_bytes
 
     def _build_encode_verified(self, key: tuple) -> Callable:
         """Fused encode + CRC: one call returns (parity, crcs), crcs over the
@@ -361,21 +404,10 @@ class TorchECCodec:
                 return parity, crcs.cpu().numpy().view(np.uint32)
             return encode_words
 
-        from t3fs_torch.ops.torch_codec import make_crc32c_batch, make_rs_encode
+        from t3fs_torch.ops.cuda_codec import make_stripe_encode_step_bytes
 
-        encf = make_rs_encode(rs, device=self.device)
-        crcf = make_crc32c_batch(L, device=self.device)
-
-        def encode_torch(stacked: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-            self._count("torch-bitmatmul")
-            data = torch.from_numpy(stacked).to(self.device)
-            n = stacked.shape[0]
-            parity = encf(data)
-            dcrc = crcf(data.reshape(n * k, L)).reshape(n, k)
-            pcrc = crcf(parity.reshape(n * m, L)).reshape(n, m)
-            crcs = torch.cat([dcrc, pcrc], dim=1)
-            return parity.cpu().numpy(), crcs.cpu().numpy().view(np.uint32)
-        return encode_torch
+        return self._bytes_step("cuda-encode-bytes", make_stripe_encode_step_bytes(
+            L, k, m, device=self.device))
 
     def _build_reconstruct(self, key: tuple) -> Callable:
         _kind, present, want, k, m, L = key
@@ -399,7 +431,7 @@ class TorchECCodec:
 
         def reconstruct_bytes(stacked: np.ndarray) -> np.ndarray:
             self._count("cuda-bitmatmul")
-            return rec(torch.from_numpy(stacked).to(self.device)).cpu().numpy()
+            return rec(self._bytes(stacked)).cpu().numpy()
         return reconstruct_bytes
 
     def _build_reconstruct_verified(self, key: tuple) -> Callable:
@@ -423,29 +455,17 @@ class TorchECCodec:
                 return rebuilt, crcs.cpu().numpy().view(np.uint32)
             return decode_words
 
-        from t3fs_torch.ops.torch_codec import make_crc32c_batch, make_rs_reconstruct
+        from t3fs_torch.ops.cuda_codec import make_stripe_decode_step_bytes
 
-        recf = make_rs_reconstruct(present, want, rs, device=self.device)
-        crcf = make_crc32c_batch(L, device=self.device)
-
-        def decode_torch(stacked: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-            self._count("torch-bitmatmul")
-            shards = torch.from_numpy(stacked).to(self.device)
-            n = stacked.shape[0]
-            rebuilt = recf(shards)
-            scrc = crcf(shards.reshape(n * k, L)).reshape(n, k)
-            rcrc = crcf(rebuilt.reshape(n * n_want, L)).reshape(n, n_want)
-            crcs = torch.cat([scrc, rcrc], dim=1)
-            return rebuilt.cpu().numpy(), crcs.cpu().numpy().view(np.uint32)
-        return decode_torch
+        return self._bytes_step("cuda-decode-bytes", make_stripe_decode_step_bytes(
+            L, present, want, k, m, device=self.device))
 
     def _build_repair(self, key: tuple) -> Callable:
         """Scheduled single-row repair + CRC of the rebuilt bytes: the fused
         repair step on 512-multiple lengths; otherwise B4 on the rows padded
-        to a whole word, cut back to L, and the plain PyTorch CRC."""
+        to a whole word, cut back to L, and B6."""
         _kind, coeffs, k, m, L = key
         prog = schedule_repair_program(coeffs)
-        h = prog.num_helpers
         if L % 512 == 0:
             from t3fs_torch.ops.cuda_codec import make_repair_step_words
 
@@ -460,19 +480,33 @@ class TorchECCodec:
                 return rebuilt, crcs.cpu().numpy().view(np.uint32)
             return repair_words
 
-        from t3fs_torch.ops.cuda_codec import make_repair_subshard_words
-        from t3fs_torch.ops.torch_codec import make_crc32c_batch
+        from t3fs_torch.ops.cuda_codec import make_repair_step_bytes
 
-        rep = make_repair_subshard_words(prog, default_rs(k, m),
-                                         device=self.device)
-        crcf = make_crc32c_batch(L, device=self.device)
-        pad = (-L) % 4
+        return self._bytes_step("cuda-repair-words-odd", make_repair_step_bytes(
+            L, prog, device=self.device))
 
-        def repair_odd(stacked: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-            self._count("cuda-repair-words-odd")
-            n = stacked.shape[0]
-            rows = np.pad(stacked, ((0, 0), (0, 0), (0, pad))) if pad else stacked
-            out = rep(self._words(np.ascontiguousarray(rows).reshape(n, h, -1)))
-            out = out.view(torch.uint8).reshape(n, L + pad)[:, :L].contiguous()
-            return out.cpu().numpy(), crcf(out).cpu().numpy().view(np.uint32)
-        return repair_odd
+    def _build_msr_encode_verified(self, key: tuple) -> Callable:
+        _kind, k, m, L = key
+        from t3fs_torch.ops.msr import default_msr
+        from t3fs_torch.ops.msr_codec import make_msr_encode_step
+
+        return self._bytes_step("cuda-msr-encode", make_msr_encode_step(
+            default_msr(k, m), L, device=self.device))
+
+    def _build_msr_repair(self, key: tuple) -> Callable:
+        """The pm-msr projection rebuild: one call gives the whole rebuilt
+        chunk and its CRC32C."""
+        _kind, failed_slot, k, m, L = key
+        from t3fs_torch.ops.msr import default_msr
+        from t3fs_torch.ops.msr_codec import make_msr_repair_step
+
+        return self._bytes_step("cuda-msr-repair", make_msr_repair_step(
+            default_msr(k, m), failed_slot, L, device=self.device))
+
+    def _build_msr_decode_verified(self, key: tuple) -> Callable:
+        _kind, present, want, k, m, L = key
+        from t3fs_torch.ops.msr import default_msr
+        from t3fs_torch.ops.msr_codec import make_msr_decode_step
+
+        return self._bytes_step("cuda-msr-decode", make_msr_decode_step(
+            default_msr(k, m), present, want, L, device=self.device))

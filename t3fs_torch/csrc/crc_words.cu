@@ -14,9 +14,8 @@
 //   - one warp per segment; lane l loads words 4l..4l+3 as one 16-byte
 //     vector (a warp reads the segment's 512 bytes in one coalesced load);
 //   - the table holds, per (word, nibble position, nibble value), the XOR of
-//     that nibble's columns: 128 * 8 * 16 u32 = 64 KiB of dynamic shared
-//     memory, laid out [nibble j][value][w % 4][w / 4] so the 32 lanes of a
-//     lookup hit 32 distinct banks;
+//     that nibble's columns: 64 KiB of dynamic shared memory, laid out as
+//     crc_common.cuh says (shared with the byte kernel, crc_bytes.cu);
 //   - 32 lookups per lane, then an XOR reduction over the warp (shuffles).
 //
 // Chunk combine: raw(chunk) = XOR_s P[s] . raw(seg_s), P[s] = Mb^(512(S-1-s)).
@@ -29,39 +28,9 @@
 // byte against 3.35 TB/s of HBM; every input byte is read once, the table
 // is read from L2 once per block, and the outputs are 4 bytes per run.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "crc_common.cuh"
 
 namespace {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTableWords = 8 * 16 * 4 * 32;
-constexpr int kTableBytes = kTableWords * 4;
-constexpr int kBlocksPerSm = 3;   // 64 KiB of table each fits three per SM
-
-__device__ __forceinline__ uint32_t warp_xor(uint32_t v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v ^= __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// y = M . x over GF(2); lane i holds column i of M.
-__device__ __forceinline__ uint32_t matvec(uint32_t col, uint32_t x, int lane) {
-  return warp_xor(((x >> lane) & 1u) ? col : 0u);
-}
-
-// XOR of the table terms of one word: i = w % 4 (vector component).
-__device__ __forceinline__ uint32_t word_terms(const uint32_t* T, uint32_t w,
-                                               int i, int lane) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint32_t nib = (w >> (4 * j)) & 15u;
-    acc ^= T[((j * 16 + nib) * 4 + i) * 32 + lane];
-  }
-  return acc;
-}
 
 template <bool kFold>
 __global__ void __launch_bounds__(kThreads)
@@ -71,8 +40,7 @@ crc_seg_kernel(const uint4* __restrict__ words, long long nruns, int spw,
                const uint32_t* __restrict__ shift_cols,
                uint32_t* __restrict__ out) {
   extern __shared__ uint32_t T[];
-  for (int i = threadIdx.x; i < kTableWords; i += kThreads) T[i] = table[i];
-  __syncthreads();
+  load_table(T, table);
 
   const int lane = threadIdx.x & 31;
   const uint32_t shift_col = kFold ? shift_cols[lane] : 0u;
@@ -85,9 +53,7 @@ crc_seg_kernel(const uint4* __restrict__ words, long long nruns, int spw,
     for (int t = 0; t < spw; ++t) {
       // issue the next segment's load before this one's lookups
       const uint4 next = (t + 1 < spw) ? words[(seg0 + t + 1) * 32 + lane] : v;
-      uint32_t x = word_terms(T, v.x, 0, lane) ^ word_terms(T, v.y, 1, lane) ^
-                   word_terms(T, v.z, 2, lane) ^ word_terms(T, v.w, 3, lane);
-      x = warp_xor(x);
+      const uint32_t x = segment_crc(T, v, lane);
       acc = kFold ? (matvec(shift_col, acc, lane) ^ x) : x;
       v = next;
     }
@@ -97,33 +63,6 @@ crc_seg_kernel(const uint4* __restrict__ words, long long nruns, int spw,
     }
     if (lane == 0) out[run] = acc;
   }
-}
-
-// out[c] = XOR of the runs_per_chunk partials of chunk c (one block each).
-__global__ void __launch_bounds__(kThreads)
-crc_fold_kernel(const uint32_t* __restrict__ partial, int runs_per_chunk,
-                uint32_t* __restrict__ out) {
-  __shared__ uint32_t red[kWarps];
-  const uint32_t* p = partial + (long long)blockIdx.x * runs_per_chunk;
-  uint32_t acc = 0;
-  for (int i = threadIdx.x; i < runs_per_chunk; i += kThreads) acc ^= p[i];
-  acc = warp_xor(acc);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t r = 0;
-    for (int w = 0; w < kWarps; ++w) r ^= red[w];
-    out[blockIdx.x] = r;
-  }
-}
-
-int grid_for(long long nruns) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = (nruns + kWarps - 1) / kWarps;
-  const long long cap = (long long)kBlocksPerSm * (sms > 0 ? sms : 1);
-  return (int)(want < cap ? want : cap);
 }
 
 template <bool kFold>

@@ -45,6 +45,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "rs_bitmatmul": {
         "t3fs_rs_bitmatmul": [_P, _P, _P, _LL, _I, _I, _LL, _P],
     },
+    "crc_bytes": {
+        "t3fs_crc32c_bytes_raw": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

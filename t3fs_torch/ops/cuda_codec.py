@@ -16,12 +16,16 @@ version beside it and a launch counter:
                   replaces _repair_words_kernel (pallas_codec.py:587)
   rs_bitmatmul    B5: byte-plane GF(2) map of any RS(k+m) code, encode or
                   decode -- replaces _rs_kernel (pallas_codec.py:68)
+  crc_bytes       B6: raw CRC32C of byte rows of any length and alignment,
+                  front-padded to whole segments, and the row combine --
+                  replaces _crc_seg_kernel (pallas_codec.py:116) and the
+                  combine einsum of make_crc32c_raw_fast
 
 Data contract (the reference's): the word kernels take the little-endian
 uint32 view of the byte shards (byte j is byte j % 4 of word j // 4),
 carried as int32 tensors with the same bits, so numpy's `arr.view(np.int32)`
 goes in and `.numpy().view(np.uint32)` comes out.  CRCs come back the same
-way.  B5 takes and returns uint8 byte shards.
+way.  B5 takes and returns uint8 byte shards, B6 uint8 byte rows.
 
 A wrapper chooses by the tensor it is given: a CPU tensor runs the plain
 version, a CUDA tensor launches the kernel (or raises).  There is no
@@ -38,9 +42,11 @@ from t3fs_torch import resolve_device
 from t3fs_torch.ops.blocks import pick_block
 from t3fs_torch.ops.repair_program import RepairProgram
 from t3fs_torch.ops.rs import RSCode, default_rs
+from t3fs_torch.ops.crc32c import default_matrices
 from t3fs_torch.ops.tables import (
-    SEG_WORDS, CodecTables, GFMapTables, RepairTables, codec_tables,
-    decode_tables, encode_map_tables, repair_tables)
+    SEG_BYTES, SEG_WORDS, CodecTables, CrcBytesTables, GFMapTables,
+    RepairTables, codec_tables, crc_bytes_tables, crc_nseg, decode_tables,
+    encode_map_tables, repair_tables)
 from t3fs_torch.ops.torch_codec import i32, pack_bits_u32, xtimes_i32
 
 # launches of each kernel by its wrapper (kernel launches only, never the
@@ -48,7 +54,7 @@ from t3fs_torch.ops.torch_codec import i32, pack_bits_u32, xtimes_i32
 # served it
 launches: dict[str, int] = {"crc_words": 0, "rs_raid6_words": 0,
                             "rs_reconstruct_words": 0, "repair_words": 0,
-                            "rs_bitmatmul": 0}
+                            "rs_bitmatmul": 0, "crc_bytes": 0}
 
 # consecutive segments one warp folds before its partial is written
 _RUN_SEGS = 16
@@ -74,13 +80,14 @@ def _check_words(x: torch.Tensor, ndim: int, what: str,
 
 
 def _check_cuda(x: torch.Tensor, what: str,
-                tables_device: torch.device | None = None) -> None:
+                tables_device: torch.device | None = None,
+                aligned: bool = True) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{what}: tensor on {x.device}; the kernels take "
                          "CUDA tensors and the plain versions CPU tensors")
     if tables_device is not None and tables_device != x.device:
         raise ValueError(f"{what}: tables on {tables_device}, data on {x.device}")
-    if x.data_ptr() % 16:
+    if aligned and x.data_ptr() % 16:
         raise ValueError(f"{what}: data must be 16-byte aligned")
 
 
@@ -348,6 +355,74 @@ def rs_bitmatmul(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
     return out
 
 
+# --- B6: CRC bytes ----------------------------------------------------------
+
+def _seg_bytes_bits_plain(rows: torch.Tensor, tables: CrcBytesTables
+                          ) -> torch.Tensor:
+    """(R, 512) uint8 -> (R, 32) float32 0/1 raw segment CRC bits, the TPU
+    kernel's arithmetic: plane-major unpack (index b*512 + j), one product
+    with the permuted segment matrix Lseg[perm] (sums <= 4096: exact), mod 2."""
+    planes = torch.cat([(rows >> b) & 1 for b in range(8)], dim=1).float()
+    return (planes @ tables.seg_matrix_pm).remainder_(2)
+
+
+def crc_seg_bytes_plain(rows: torch.Tensor, tables: CrcBytesTables) -> torch.Tensor:
+    """Plain version of crc_seg_bytes."""
+    return pack_bits_u32(_seg_bytes_bits_plain(rows, tables))
+
+
+def crc_seg_bytes(rows: torch.Tensor, tables: CrcBytesTables) -> torch.Tensor:
+    """(R, 512) uint8 segment rows -> (R,) int32 raw CRC of each segment."""
+    _check_words(rows, 2, "crc_seg_bytes", torch.uint8)
+    if rows.shape[1] != SEG_BYTES:
+        raise ValueError(f"crc_seg_bytes: rows of {SEG_BYTES} bytes expected, "
+                         f"got {tuple(rows.shape)}")
+    if rows.device.type == "cpu":
+        return crc_seg_bytes_plain(rows, tables)
+    return crc_bytes_raw(rows, tables)
+
+
+def crc_bytes_raw_plain(rows: torch.Tensor, tables: CrcBytesTables) -> torch.Tensor:
+    """Plain version of crc_bytes_raw: a zero front-padded copy, segment
+    bits, then the combine as one (n, S*32) @ (S*32, 32) product."""
+    n, L = rows.shape
+    S = tables.nseg
+    pad = S * SEG_BYTES - L
+    padded = torch.nn.functional.pad(rows, (pad, 0)) if pad else rows
+    seg_bits = _seg_bytes_bits_plain(padded.reshape(n * S, SEG_BYTES), tables)
+    C = tables.combine_stack.transpose(1, 2).reshape(S * 32, 32)
+    return pack_bits_u32((seg_bits.reshape(n, S * 32) @ C).remainder_(2))
+
+
+def crc_bytes_raw(rows: torch.Tensor, tables: CrcBytesTables) -> torch.Tensor:
+    """(n, L) uint8 rows, any L, any base address -> (n,) int32 raw CRC of
+    each row front-padded with zeros to tables.nseg = crc_nseg(L) segments;
+    callers XOR affine_const(L) for the CRC32C."""
+    _check_words(rows, 2, "crc_bytes_raw", torch.uint8)
+    n, L = rows.shape
+    if tables.nseg != crc_nseg(L):
+        raise ValueError(f"crc_bytes_raw: tables are for {tables.nseg} segments, "
+                         f"rows of {L} bytes need {crc_nseg(L)}")
+    if rows.device.type == "cpu":
+        return crc_bytes_raw_plain(rows, tables)
+    _check_cuda(rows, "crc_bytes_raw", tables.nibble_table.device, aligned=False)
+    if n == 0 or L == 0:
+        return torch.zeros(n, dtype=torch.int32, device=rows.device)
+    out = torch.empty(n, dtype=torch.int32, device=rows.device)
+    spw = pick_block(tables.nseg, _RUN_SEGS)
+    partial = torch.empty(n * (tables.nseg // spw), dtype=torch.int32,
+                          device=rows.device)
+    from t3fs_torch.ops._build import check, library
+
+    lib = library("crc_bytes")
+    check(lib, lib.t3fs_crc32c_bytes_raw(
+        rows.data_ptr(), n, L, tables.nseg, spw, tables.nibble_table.data_ptr(),
+        tables.combine_cols.data_ptr(), tables.seg_shift_cols.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), _stream(rows)), "crc_bytes_raw")
+    launches["crc_bytes"] += 1
+    return out
+
+
 # --- assembled paths (the pallas_codec make_* twins) -----------------------
 
 def _chunk_tables(chunk_words: int, k: int = 8, m: int = 2,
@@ -500,3 +575,129 @@ def make_rs_encode_bytes(rs: RSCode | None = None,
     encode (B5) of any (k, m) code; twin of make_rs_encode_pallas."""
     gmap = encode_map_tables(rs or default_rs(), device)
     return lambda shards: rs_bitmatmul(shards, gmap)
+
+
+def make_crc_seg_bytes(device: str | torch.device = "cuda"):
+    """(R, 512) uint8 segment rows -> (R,) int32 raw segment CRCs; twin of
+    make_crc_seg_pallas (which returns the 32 bits unpacked)."""
+    tables = crc_bytes_tables(1, device)
+    return lambda rows: crc_seg_bytes(rows, tables)
+
+
+def make_crc32c_raw_fast(padded_len: int, device: str | torch.device = "cuda"):
+    """(n, padded_len) uint8 -> (n,) int32 raw CRC (no affine); twin of
+    make_crc32c_raw_fast.  padded_len must be a multiple of 512."""
+    if padded_len <= 0 or padded_len % SEG_BYTES:
+        raise ValueError(f"padded_len {padded_len} not a positive multiple of "
+                         f"{SEG_BYTES}")
+    tables = crc_bytes_tables(padded_len // SEG_BYTES, device)
+    return lambda rows: crc_bytes_raw(rows, tables)
+
+
+def make_crc32c_bytes(chunk_len: int, device: str | torch.device = "cuda"):
+    """(n, chunk_len) uint8 -> (n,) int32 CRC32C of each row, any length:
+    raw CRC of the front-padded row, XOR the true length's affine constant.
+    The card's counterpart of jax_codec.make_crc32c_batch."""
+    tables = crc_bytes_tables(crc_nseg(chunk_len), device)
+    affine = i32(default_matrices().affine_const(chunk_len))
+    return lambda rows: crc_bytes_raw(rows, tables) ^ affine
+
+
+def make_crc32c_rows(chunk_len: int, device: str | torch.device = "cuda"):
+    """(n, chunk_len) uint8 rows -> (n,) int32 CRC32C: B1 on the rows' word
+    view where they are whole segments, else B6."""
+    if chunk_len % SEG_BYTES or chunk_len == 0:
+        return make_crc32c_bytes(chunk_len, device)
+    crc = make_crc32c_words(chunk_len // 4, device)
+    return lambda rows: crc(rows.view(torch.int32))
+
+
+def _encode_crc_step(encode, chunk_len: int, k: int, m: int,
+                     device: str | torch.device):
+    """`encode` ((n, k, L) uint8 -> (n, m, L) uint8 parity), then B6 on the
+    data and on the parity through reshapes of the same tensors."""
+    crc = make_crc32c_bytes(chunk_len, device)
+
+    def step(stripes: torch.Tensor):
+        n = stripes.shape[0]
+        parity = encode(stripes)
+        dcrc = crc(stripes.reshape(n * k, chunk_len)).reshape(n, k)
+        pcrc = crc(parity.reshape(n * m, chunk_len)).reshape(n, m)
+        return parity, torch.cat([dcrc, pcrc], dim=1)
+
+    return step
+
+
+def make_stripe_encode_step_fast(chunk_len: int, k: int = 8, m: int = 2,
+                                 device: str | torch.device = "cuda"):
+    """The byte-path stripe step: (n, k, chunk_len) uint8 -> parity (n, m,
+    chunk_len) uint8, crcs (n, k+m) int32 (data shards, then parity).  B5
+    encode, then B6 on the data and on the parity with no concat; twin of
+    make_stripe_encode_step_fast, for any chunk_len."""
+    return _encode_crc_step(make_rs_encode_bytes(default_rs(k, m), device),
+                            chunk_len, k, m, device)
+
+
+def make_stripe_encode_step_bytes(chunk_len: int, k: int = 8, m: int = 2,
+                                  device: str | torch.device = "cuda"):
+    """The write step of the chunk lengths the word step does not take: B2
+    on the int32 view where the code is RAID-6 and chunk_len % 4 == 0, else
+    B5; then B6 on the data and on the parity."""
+    rs = default_rs(k, m)
+    if not (rs.raid6 and chunk_len % 4 == 0):
+        return make_stripe_encode_step_fast(chunk_len, k, m, device)
+    enc = make_rs_encode_words(rs, device)
+
+    def encode(stripes: torch.Tensor) -> torch.Tensor:
+        return enc(stripes.view(torch.int32)).view(torch.uint8)
+
+    return _encode_crc_step(encode, chunk_len, k, m, device)
+
+
+def make_stripe_decode_step_bytes(chunk_len: int, present: tuple[int, ...],
+                                  want: tuple[int, ...], k: int = 8, m: int = 2,
+                                  device: str | torch.device = "cuda"):
+    """The byte-path read step: (n, k, chunk_len) uint8 present shards ->
+    rebuilt (n, |want|, chunk_len) uint8, crcs (n, k + |want|) int32
+    (survivors in `present` order, then the rebuilt shards in `want`
+    order).  B5 decode, then B6 on the survivors and the rebuilt shards;
+    the card's counterpart of ECCodec's XLA-fused decode."""
+    rec = make_rs_reconstruct_bytes(present, want, default_rs(k, m), device)
+    crc = make_crc32c_bytes(chunk_len, device)
+    nwant = len(want)
+
+    def step(shards: torch.Tensor):
+        n = shards.shape[0]
+        rebuilt = rec(shards)
+        scrc = crc(shards.reshape(n * k, chunk_len)).reshape(n, k)
+        rcrc = crc(rebuilt.reshape(n * nwant, chunk_len)).reshape(n, nwant)
+        return rebuilt, torch.cat([scrc, rcrc], dim=1)
+
+    return step
+
+
+def repair_bytes(rows: torch.Tensor, rep: RepairTables) -> torch.Tensor:
+    """(n, h, L) uint8 contiguous helper rows, any L -> (n, L) uint8: B4 on
+    the rows zero-padded to whole words, cut back to L."""
+    L = rows.shape[-1]
+    pad = (-L) % 4
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, pad))
+    out = repair_words(rows.view(torch.int32), rep).view(torch.uint8)
+    return out[:, :L].contiguous() if pad else out
+
+
+def make_repair_step_bytes(chunk_len: int, program: RepairProgram,
+                           device: str | torch.device = "cuda"):
+    """Repair of rows whose length the fused word step does not take: (n,
+    h, chunk_len) uint8 helper rows -> rebuilt (n, chunk_len) uint8, crcs
+    (n,) int32.  B4 on whole words (repair_bytes), then B6."""
+    resolve_device(device)
+    rep = repair_tables(program)
+    crc = make_crc32c_bytes(chunk_len, device)
+
+    def step(rows: torch.Tensor):
+        out = repair_bytes(rows, rep)
+        return out, crc(out)
+
+    return step

@@ -17,6 +17,10 @@ the JAX package, which is how the tests hold the two against each other --
 into the tensors the kernels and their plain versions read.  The kernels
 take their constants from a CodecTables and nowhere else.
 
+The byte-path CRC (B6) has its own, from `build_crc_bytes_arrays` and
+`load_crc_bytes_tables`: the segment matrix (plane-major for the plain
+version, a nibble table for the kernel) and the combine stack.
+
 The read side's constants follow the same pattern.  A GF(2^8)-linear map of
 k input shards to r output shards (a decode pattern, or the encode's parity
 rows) is built by `build_decode_arrays` / `build_encode_arrays`:
@@ -163,6 +167,94 @@ def codec_tables(nseg: int = 1, k: int = 8, m: int = 2,
                  device: str | torch.device = "cuda") -> CodecTables:
     """load_codec_tables(build_codec_tables(...)): the port's own constants."""
     return load_codec_tables(build_codec_tables(nseg, k, m), device)
+
+
+# --- byte-path CRC (B6) -----------------------------------------------------
+
+def crc_nseg(nbytes: int) -> int:
+    """Segments of a row of `nbytes` front-padded to whole segments (an
+    empty row is one all-padding segment, whose raw CRC is 0)."""
+    return max(1, -(-nbytes // SEG_BYTES))
+
+
+def build_crc_bytes_arrays(nseg: int = 1) -> dict[str, np.ndarray]:
+    """B6's constants for rows of `nseg` segments, in the JAX package's
+    formats:
+
+      segment_matrix  (4096, 32) u8   Crc32cMatrix.segment_matrix(512)
+      combine_stack   (S, 32, 32) u8  Crc32cMatrix.combine_stack(S, 512)
+      seg_shift       (32, 32) u8     Crc32cMatrix.shift_matrix(512)
+    """
+    mats = default_matrices()
+    return {
+        "segment_matrix": mats.segment_matrix(SEG_BYTES),
+        "combine_stack": mats.combine_stack(nseg, SEG_BYTES),
+        "seg_shift": mats.shift_matrix(SEG_BYTES),
+    }
+
+
+def _byte_nibble_table(seg_matrix: np.ndarray) -> np.ndarray:
+    """B6's lookup table, straight from the (4096, 32) segment matrix, in
+    the word kernel's layout (16384,) int32: entry [j][v][i][l] is the XOR
+    of the CRC columns of the set bits of nibble value v at nibble j % 2 of
+    segment byte 16l + 4i + j // 2 (lane l holds words 4l..4l+3)."""
+    w = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    cols = (np.asarray(seg_matrix, dtype=np.uint64) * w).sum(axis=1)
+    V = cols.astype(np.uint32).reshape(SEG_BYTES, 2, 4)     # [byte, nibble, bit]
+    table = np.zeros((SEG_BYTES, 2, 16), dtype=np.uint32)
+    for v in range(16):
+        for t in range(4):
+            if (v >> t) & 1:
+                table[:, :, v] ^= V[:, :, t]
+    # [byte = 16l + 4i + c, h, v] -> [j = 2c + h, v, i, l]
+    table = table.reshape(32, 4, 4, 2, 16).transpose(2, 3, 4, 1, 0)
+    return np.ascontiguousarray(table).reshape(-1).view(np.int32)
+
+
+@dataclass(frozen=True)
+class CrcBytesTables:
+    """Device tensors of B6 for rows of `nseg` segments.  The plain version
+    reads the plane-major segment matrix and the combine stack; the kernel
+    reads the nibble table and the packed-column forms."""
+
+    device: torch.device
+    nseg: int
+    seg_matrix_pm: torch.Tensor      # (4096, 32) f32 Lseg[perm]: plain B6
+    combine_stack: torch.Tensor      # (S, 32, 32) f32: plain combine
+    nibble_table: torch.Tensor       # (16384,) int32: kernel B6
+    combine_cols: torch.Tensor       # (S, 32) int32: kernel combine
+    seg_shift_cols: torch.Tensor     # (32,) int32: kernel combine (Horner step)
+
+
+def load_crc_bytes_tables(arrays: dict[str, np.ndarray],
+                          device: str | torch.device = "cuda") -> CrcBytesTables:
+    """Arrays in build_crc_bytes_arrays' formats (this package's, or the JAX
+    package's segment_matrix / combine_stack / shift_matrix) -> tensors."""
+    dev = resolve_device(device)
+    Lseg = np.asarray(arrays["segment_matrix"], dtype=np.uint8)
+    stack = np.asarray(arrays["combine_stack"], dtype=np.uint8)
+    if Lseg.shape != (8 * SEG_BYTES, 32):
+        raise ValueError(f"segment_matrix {Lseg.shape} is not of a "
+                         f"{SEG_BYTES}-byte segment")
+
+    def t(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return CrcBytesTables(
+        device=dev,
+        nseg=stack.shape[0],
+        seg_matrix_pm=t(Lseg[plane_major_perm(SEG_BYTES)].astype(np.float32)),
+        combine_stack=t(stack.astype(np.float32)),
+        nibble_table=t(_byte_nibble_table(Lseg)),
+        combine_cols=t(_pack_columns(stack)),
+        seg_shift_cols=t(_pack_columns(np.asarray(arrays["seg_shift"]))),
+    )
+
+
+def crc_bytes_tables(nseg: int = 1,
+                     device: str | torch.device = "cuda") -> CrcBytesTables:
+    """load_crc_bytes_tables(build_crc_bytes_arrays(...))."""
+    return load_crc_bytes_tables(build_crc_bytes_arrays(nseg), device)
 
 
 # --- read side: GF(2^8)-linear maps (B3, B5) and repair programs (B4) -------

@@ -6,9 +6,11 @@ and a mod 2 recovers the GF(2) result.  The products run in float32, which
 is exact here: every sum counts at most 8*segment (4096) or 32*segments
 ones, far below 2^24, and torch has no integer matmul on CUDA.
 
-This is the path TorchECCodec runs for codes that are not RAID-6 (and for
-odd lengths), where the JAX package runs XLA rather than Pallas; the
-word-packed CUDA kernels of the write path live in cuda_codec.
+It is the twin of the XLA programs, not a route of the codec: TorchECCodec
+runs the CUDA kernels of cuda_codec on every route, for codes that are not
+RAID-6 and odd lengths too.  These functions stay as an oracle that shares
+no arithmetic with the kernels' plain versions (the tests and chip_smoke
+hold kernel outputs against them).
 
 Conventions: torch has no unsigned 32-bit arithmetic on the CPU, so every
 uint32 value (CRC, packed word) is carried as the int32 tensor with the same

@@ -1,9 +1,10 @@
 """TorchECCodec (device="cpu") against the JAX package's ECCodec on the same
 stripes: encode (the RAID-6 word route, the fused encode+CRC route and the
-plain bit-matmul route for codes that are not RAID-6), reconstruct,
-reconstruct_verified and repair on every route, the warmups, and the
-batching of mixed patterns in one flush.  ECCodec runs its Pallas kernels
-in interpret mode where the reads compare with the port's kernel routes."""
+byte routes on B5 and B6 for codes that are not RAID-6 and for other
+lengths), reconstruct, reconstruct_verified and repair on every route, the
+pm-msr keys, the warmups, and the batching of mixed patterns in one flush.
+ECCodec runs its Pallas kernels in interpret mode where the reads compare
+with the port's kernel routes."""
 
 import asyncio
 
@@ -13,7 +14,8 @@ import pytest
 from t3fs.client.ec_codec import ECCodec
 from t3fs.ops.crc32c import crc32c_ref
 from t3fs.ops.rs import RSCode
-from t3fs_torch.client.ec_codec import NOT_PORTED, TorchECCodec
+from t3fs.ops.msr import default_msr as ref_default_msr
+from t3fs_torch.client.ec_codec import TorchECCodec
 from t3fs_torch.ops.repair_program import single_row_program
 from t3fs_torch.ops.rs import default_rs
 
@@ -37,8 +39,8 @@ async def _both(method: str, stripes, k, m):
 
 @pytest.mark.parametrize("k,m,L,codec", [
     (8, 2, 2048, "cuda-words"),          # RAID-6 word kernel route
-    (8, 2, 1002, "torch-bitmatmul"),     # RAID-6, L % 4 != 0
-    (4, 3, 1000, "torch-bitmatmul"),     # not RAID-6
+    (8, 2, 1002, "cuda-bitmatmul"),      # RAID-6, L % 4 != 0: B5
+    (4, 3, 1000, "cuda-bitmatmul"),      # not RAID-6: B5
 ])
 def test_encode_matches_reference(k, m, L, codec):
     stripes = _stripes(k, L)
@@ -54,8 +56,8 @@ def test_encode_matches_reference(k, m, L, codec):
 
 @pytest.mark.parametrize("k,m,L,codec", [
     (8, 2, 2048, "cuda-encode-words"),   # fused stripe step route
-    (8, 2, 1000, "torch-bitmatmul"),     # RAID-6, L % 512 != 0
-    (4, 3, 512, "torch-bitmatmul"),      # not RAID-6
+    (8, 2, 1000, "cuda-encode-bytes"),   # RAID-6, L % 512 != 0: B2 + B6
+    (4, 3, 512, "cuda-encode-bytes"),    # not RAID-6: B5 + B6
 ])
 def test_encode_verified_matches_reference(k, m, L, codec):
     stripes = _stripes(k, L)
@@ -66,21 +68,6 @@ def test_encode_verified_matches_reference(k, m, L, codec):
         full = np.concatenate([s, gp], axis=0)
         assert [int(c) for c in gc] == [crc32c_ref(r.tobytes()) for r in full]
     assert port.codec_counts.get(codec, 0) >= 1
-
-
-@pytest.mark.parametrize("method,args,key", [
-    ("msr_encode_verified", (None, 8, 2), "mencv"),
-    ("msr_repair", (None, 0), "mrep"),
-    ("msr_decode_verified", (None, (), (), 8, 2), "mdecv"),
-])
-def test_read_side_keys_not_ported(method, args, key):
-    codec = TorchECCodec(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
-        asyncio.run(getattr(codec, method)(*args))
-    assert "ROADMAP.md" in NOT_PORTED[key]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        codec.warmup_msr([], 512)
-    asyncio.run(codec.close())
 
 
 def test_submit_after_close_raises():
@@ -140,8 +127,8 @@ def test_reconstruct_matches_reference(k, m, L, lost, codec, interpret_env):
 @pytest.mark.parametrize("k,m,L,lost,codec", [
     (8, 2, 2048, (0, 9), "cuda-decode-words"),  # fused decode step (B3 + B1)
     (8, 2, 2048, (5,), "cuda-decode-words"),
-    (8, 2, 1000, (1, 2), "torch-bitmatmul"),    # RAID-6, L % 512 != 0
-    (4, 3, 512, (0, 5, 6), "torch-bitmatmul"),  # not RAID-6
+    (8, 2, 1000, (1, 2), "cuda-decode-bytes"),  # RAID-6, L % 512 != 0: B5 + B6
+    (4, 3, 512, (0, 5, 6), "cuda-decode-bytes"),  # not RAID-6
 ])
 def test_reconstruct_verified_matches_reference(k, m, L, lost, codec, interpret_env):
     stripes = _full(k, m, L)
@@ -203,7 +190,7 @@ def _repair_calls(full: np.ndarray, k: int, m: int):
 
 @pytest.mark.parametrize("L,codec", [
     (1024, "cuda-repair-words"),       # fused repair step (B4 + B1)
-    (1000, "cuda-repair-words-odd"),   # L % 512 != 0: B4, plain CRC
+    (1000, "cuda-repair-words-odd"),   # L % 512 != 0: B4, then B6
     (1001, "cuda-repair-words-odd"),   # L % 4 != 0: padded to whole words
 ])
 def test_repair_all_masks_matches_reference(L, codec, interpret_env):
@@ -277,4 +264,77 @@ def test_warmup_decode_and_repair_build_each_key():
         codec.warmup_decode([((1, 2, 3, 4, 5, 6, 7, 8), (0,))], 512)
         codec.warmup_repair([(1, 1)], 1024)     # after close(): no-ops
         assert ("rep", (1, 1), 8, 2, 1024) not in codec._fns
+    asyncio.run(body())
+
+
+def _msr_stored(L: int, n: int = 3) -> list[np.ndarray]:
+    code = ref_default_msr(8, 2)
+    out = []
+    for s in _stripes(8, L, n):
+        out.append(np.concatenate([s, code.encode_np(s)]))
+    return out
+
+
+def _msr_helpers(full: np.ndarray, f: int) -> np.ndarray:
+    sch = ref_default_msr(8, 2).schedule(f)
+    sub = full.shape[1] // 32
+    return np.stack([full[h].reshape(32, sub)[list(sch.selected)].reshape(-1)
+                     for h in sch.helpers])
+
+
+@pytest.mark.parametrize("L", [16384, 4064])
+def test_msr_encode_verified_matches_reference(L, interpret_env):
+    stripes = _msr_stored(L)
+    calls = [("msr_encode_verified", (f[:8].copy(), 8, 2)) for f in stripes]
+    port, got, want = asyncio.run(_both_calls(calls))
+    for f, (gp, gc), (wp, wc) in zip(stripes, got, want):
+        assert np.array_equal(gp, np.asarray(wp)) and np.array_equal(gp, f[8:])
+        assert gc.dtype == np.uint32 and np.array_equal(gc, np.asarray(wc))
+        assert [int(c) for c in gc] == [crc32c_ref(r.tobytes()) for r in f]
+    assert port.codec_counts == {"cuda-msr-encode": port.batches}
+
+
+@pytest.mark.parametrize("L", [16384, 4032])
+def test_msr_repair_matches_reference(L, interpret_env):
+    """Single-loss projection repair of a data slot, the partner of a
+    parity slot and a parity slot, concurrently."""
+    full = _msr_stored(L, n=1)[0]
+    calls = [("msr_repair", (_msr_helpers(full, f), f, 8, 2)) for f in (3, 8, 9)]
+    port, got, want = asyncio.run(_both_calls(calls))
+    for f, (gr, gc), (wr, wc) in zip((3, 8, 9), got, want):
+        assert np.array_equal(gr, np.asarray(wr)) and np.array_equal(gr, full[f])
+        assert int(gc) == int(wc) == crc32c_ref(full[f].tobytes())
+    assert port.codec_counts == {"cuda-msr-repair": 3}
+
+
+@pytest.mark.parametrize("lost", [(0, 1), (4, 9), (8, 9)])
+def test_msr_decode_verified_matches_reference(lost, interpret_env):
+    stripes = _msr_stored(2048, n=2)
+    calls = [("msr_decode_verified", (*_lose(f, lost, 8), 8, 2)) for f in stripes]
+    port, got, want = asyncio.run(_both_calls(calls))
+    for f, (gr, gc), (wr, wc) in zip(stripes, got, want):
+        assert np.array_equal(gr, np.asarray(wr)) and np.array_equal(gr, f[list(lost)])
+        assert np.array_equal(gc, np.asarray(wc))
+        present = _lose(f, lost, 8)[1]
+        assert [int(c) for c in gc] == [crc32c_ref(f[s].tobytes())
+                                        for s in (*present, *lost)]
+    assert port.codec_counts == {"cuda-msr-decode": 1}
+
+
+def test_warmup_msr_builds_each_key():
+    async def body():
+        codec = TorchECCodec(device="cpu")
+        try:
+            codec.warmup_msr([0, 9], 2048, batch_sizes=(1, 2))
+            assert ("mencv", 8, 2, 2048) in codec._fns
+            for f in (0, 9):
+                assert ("mrep", f, 8, 2, 2048) in codec._fns
+            assert codec.codec_counts == {"cuda-msr-encode": 2, "cuda-msr-repair": 4}
+            # a length the code cannot split into sub-chunks is logged, not raised
+            codec.warmup_msr([1], 1000)
+            assert ("mrep", 1, 8, 2, 1000) not in codec._fns
+        finally:
+            await codec.close()
+        codec.warmup_msr([2], 2048)             # after close(): a no-op
+        assert ("mrep", 2, 8, 2, 2048) not in codec._fns
     asyncio.run(body())

@@ -33,7 +33,7 @@ def test_port_imports_no_jax_and_no_t3fs():
     r = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[0]) >= 14      # every module was imported
+    assert int(r.stdout.split()[0]) >= 16      # every module was imported
 
 
 def test_port_sources_name_no_jax_or_t3fs_module():
@@ -49,7 +49,8 @@ def test_port_sources_name_no_jax_or_t3fs_module():
 def _entry_points():
     from t3fs_torch import resolve_device
     from t3fs_torch.client.ec_codec import TorchECCodec
-    from t3fs_torch.ops import cuda_codec, tables, torch_codec
+    from t3fs_torch.ops import cuda_codec, msr_codec, tables, torch_codec
+    from t3fs_torch.ops.msr import default_msr
     from t3fs_torch.ops.repair_program import xor_program
     from t3fs_torch.storage.codec_backend import (
         CudaChecksumBackend, make_checksum_backend)
@@ -83,14 +84,29 @@ def _entry_points():
         lambda: tables.decode_tables(tuple(range(8)), (9,)),
         tables.encode_map_tables,
         lambda: tables.load_gfmap_tables(tables.build_encode_arrays()),
+        # the byte path (B6) and pm-msr
+        cuda_codec.make_crc_seg_bytes,
+        lambda: cuda_codec.make_crc32c_raw_fast(512),
+        lambda: cuda_codec.make_crc32c_bytes(10),
+        lambda: cuda_codec.make_crc32c_rows(512),
+        lambda: cuda_codec.make_stripe_encode_step_fast(512),
+        lambda: cuda_codec.make_stripe_encode_step_bytes(1000),
+        lambda: cuda_codec.make_stripe_decode_step_bytes(1000, tuple(range(8)), (9,)),
+        lambda: cuda_codec.make_repair_step_bytes(1000, xor_program(3)),
+        tables.crc_bytes_tables,
+        lambda: tables.load_crc_bytes_tables(tables.build_crc_bytes_arrays()),
+        lambda: msr_codec.make_msr_encode_step(default_msr(), 2048),
+        lambda: msr_codec.make_msr_repair_step(default_msr(), 0, 2048),
+        lambda: msr_codec.make_msr_decode_step(default_msr(), tuple(range(8)),
+                                               (8, 9), 2048),
     ]
 
 
-@pytest.mark.parametrize("i", range(26))
+@pytest.mark.parametrize("i", range(39))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 26
+    assert len(entries) == 39
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
