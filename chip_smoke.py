@@ -49,20 +49,29 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      decode_np, every rebuilt byte and CRC checked
  14  CUDA-event times of B6 at both row shapes (beside B1's at the same
      bytes), the byte encode step and the PM-MSR repair step
+ 16  H1 (the bench's calibration copy) against its plain version at the
+     bench's shape (12, 8, 256Ki words) and at ragged shapes, aligned and
+     not; a CUDA-graph chained pass against the eager one; H1's time beside
+     its bound, its plain version and torch.add; then the headline bench
+     (`t3fs_torch.bench --quick`: value > 0, the card named, H1 launched)
+     and the decode bench (--decode-ab at 12 x 1 MiB stripes)
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
 route on the card.  Launch counts: the counters are set to 0 just before
-each main-path run (phases 3, 4, 7, 8, 9, 12 and 13) and read just after;
-launches made to compare a kernel with its plain version (phases 1, 2, 5,
-6, 10, 11 and 14) are not counted.
+each main-path run (phases 3, 4, 7, 8, 9, 12 and 13, and the bench run of
+phase 16, which counts H1 only: its hundreds of B1 and B2 launches
+would drown the codec paths' counts) and read just after; launches made to
+compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11, 14 and
+16's checks) are not counted.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import io
 import json
-import subprocess
 import sys
 import time
 
@@ -350,17 +359,9 @@ async def phase_ec(dev: torch.device, shard_bytes: int, requests: int) -> dict:
 # --- phase 5: times ----------------------------------------------------------
 
 def time_ms(fn, iters: int, warm: int = 2) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    from t3fs_torch.benchmarks.devbench import event_ms
+
+    return event_ms(fn, iters, warm)
 
 
 def kernel_times(fn) -> dict:
@@ -1133,13 +1134,75 @@ def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
     return out
 
 
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode:
-        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
-    return r.stdout.strip().splitlines()[0]
+# --- phase 16: H1, the headline bench and the decode bench -------------------
+
+def run_captured(main, argv: list[str]) -> tuple[int, list[str]]:
+    """A bench's main(argv) in this process: its lines echoed under [16],
+    its exit code and its lines returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[16] {line}")
+    return rc, lines
+
+
+def phase_bench(dev: torch.device, g: torch.Generator) -> tuple[int, dict, dict]:
+    from t3fs_torch import bench
+    from t3fs_torch.benchmarks import devbench as db
+    from t3fs_torch.benchmarks import ec_recovery_bench as ecb
+    from t3fs_torch.ops import cuda_codec as cc
+
+    x = rand_words(g, dev, STRIPES, K, SHARD_BYTES // 4)
+    x.view(-1)[:2] = torch.tensor([-1, 2**31 - 1], dtype=torch.int32, device=dev)
+    ragged = rand_words(g, dev, 3, 5, 1001)
+    unaligned = rand_words(g, dev, 3 * 5 * 1001 + 1)[1:].view(3, 5, 1001)
+    e = 0
+    for label, t in (("the bench's shape, with both wraps", x), ("ragged", ragged),
+                     ("ragged, 4 bytes off alignment", unaligned),
+                     ("one vector and a tail", rand_words(g, dev, 1, 1, 7))):
+        et = max_abs_err(db.make_copy3d(t), db.copy3d_plain(t))
+        log(f"[16] copy3d {tuple(t.shape)} ({label}): max_abs_err={et}")
+        e = max(e, et)
+    expect(e == 0, f"H1 disagrees with its plain version (max_abs_err={e})")
+    one = db.chained_timer(db.make_copy3d, x, 5)
+    log(f"[16] a chained copy3d pass captured as a CUDA graph gives the eager "
+        f"pass's acc; 5 iterations in {one() * 1e3:.3f} ms")
+
+    nbytes = x.numel() * 4
+    t = {**kernel_times(lambda: db.make_copy3d(x)),
+         "plain_ms": kernel_times(lambda: db.copy3d_plain(x))["ms"],
+         "library_ms": kernel_times(lambda: torch.add(x, 1))["ms"],
+         "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"[16] copy3d ({STRIPES}, {K}, {SHARD_BYTES // 4}): {t['ms'] * 1e3:.1f} us, "
+        f"median of {REPEATS} (min {t['min_ms'] * 1e3:.1f}, max {t['max_ms'] * 1e3:.1f}) "
+        f"(bound {t['bound_ms'] * 1e3:.1f} us by bytes at 3.35 TB/s, "
+        f"{t['bound_ms'] / t['ms'] * 100:.1f}% of it; {2 * nbytes / t['ms'] / 1e6:.1f} "
+        f"GB/s r+w); plain {t['plain_ms'] * 1e3:.1f} us; library call torch.add "
+        f"{t['library_ms'] * 1e3:.1f} us")
+
+    cc.reset_launches()
+    db.reset_launches()
+    rc, lines = run_captured(bench.main, ["--quick"])
+    launches = {"copy3d": db.launches["copy3d"]}
+    res = json.loads(lines[-1])
+    log(f"[16] bench --quick: exit {rc}; its launches: copy3d {launches['copy3d']}, "
+        f"codec {dict(cc.launches)}")
+    expect(rc == 0 and res["value"] > 0, f"the bench failed: {lines[-1]}")
+    expect(res["device"] == torch.cuda.get_device_name(0), "the bench line names no card")
+    expect(launches["copy3d"] > 0, "the bench must launch H1")
+
+    rc, lines = run_captured(ecb.main, ["--chunk-size", str(SHARD_BYTES), "--decode-batch",
+                                        str(STRIPES), "--decode-ab", "--json"])
+    expect(rc == 0, f"the decode bench failed: {lines[-1]}")
+    rates = {k: v for k, v in json.loads(lines[0])["decode_microbench"].items()
+             if k.endswith("_GB_s")}
+    metric = json.loads(lines[-1])["decode_metric"]
+    expect(len(rates) == 3 and min(rates.values()) > 0
+           and metric[f"rs{K}+{M}_reconstruct_GB_s"] > 0,
+           f"the decode bench gave no fused, word and byte-plane rates: {rates}")
+    return e, t, launches
 
 
 def main() -> int:
@@ -1147,6 +1210,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a GPU", file=sys.stderr)
         return 1
+    from t3fs_torch.benchmarks.devbench import card_line
     from t3fs_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -1180,8 +1244,11 @@ def main() -> int:
     main_runs.append(asyncio.run(phase_byte_routes(dev)))
     main_runs.append(asyncio.run(phase_msr(dev)))
     byte_times = phase_byte_times(dev, g, times["crc_words"])
+    e_copy, copy_times, bench_launches = phase_bench(dev, g)
+    main_runs.append(bench_launches)
 
-    from t3fs_torch.ops.cuda_codec import launches as _names
+    from t3fs_torch.benchmarks.devbench import launches as _bench_names
+    from t3fs_torch.ops.cuda_codec import launches as _codec_names
 
     # phases 7, 8, 12 and 13 check every CRC the fused steps returned
     # against plain B1 or B6 and every rebuilt byte, so a mismatch there
@@ -1206,17 +1273,20 @@ def main() -> int:
         "crc_bytes": ("t3fs_torch/csrc/crc_bytes.cu",
                       "t3fs/ops/pallas_codec.py:116", e_bytes,
                       byte_times["crc_bytes 64 x 4 MiB"]),
+        "copy3d": ("t3fs_torch/csrc/copy3d.cu", "benchmarks/devbench.py:91", e_copy,
+                   copy_times),
     }
     kernels = []
-    for name in _names:
+    for name in [*_codec_names, *_bench_names]:
         source, replaces, err, t = meta[name]
-        launched = sum(run[name] for run in main_runs)
+        launched = sum(run.get(name, 0) for run in main_runs)
         expect(launched > 0, f"{name} was not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launched,
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": t.get("library_ms"),
         })
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -48,6 +48,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "crc_bytes": {
         "t3fs_crc32c_bytes_raw": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
     },
+    "copy3d": {
+        "t3fs_copy3d": [_P, _P, _LL, _P],
+    },
 }
 
 _lock = threading.Lock()

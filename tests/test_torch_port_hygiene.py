@@ -2,6 +2,7 @@
 the JAX package, every entry point defaults to CUDA and refuses to run on
 the CPU unasked, and chip_smoke fails without a GPU."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -47,7 +48,9 @@ def test_port_sources_name_no_jax_or_t3fs_module():
 
 
 def _entry_points():
-    from t3fs_torch import resolve_device
+    from t3fs_torch import bench, resolve_device
+    from t3fs_torch.benchmarks import devbench
+    from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_codec import TorchECCodec
     from t3fs_torch.ops import cuda_codec, msr_codec, tables, torch_codec
     from t3fs_torch.ops.msr import default_msr
@@ -99,14 +102,20 @@ def _entry_points():
         lambda: msr_codec.make_msr_repair_step(default_msr(), 0, 2048),
         lambda: msr_codec.make_msr_decode_step(default_msr(), tuple(range(8)),
                                                (8, 9), 2048),
+        # the bench path
+        lambda: devbench.make_copy3d(devbench.bench_words((1, 1, 4))),
+        devbench.main,
+        lambda: bench.measure(quick=True),
+        lambda: ecb.decode_ops(8, 2, 4096, 1),
+        lambda: ecb.decode_microbench(ecb.parse_args([])),
     ]
 
 
-@pytest.mark.parametrize("i", range(39))
+@pytest.mark.parametrize("i", range(44))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 39
+    assert len(entries) == 44
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -125,3 +134,20 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("cmd,key", [
+    (["-m", "t3fs_torch.bench"], "metric"),
+    (["-m", "t3fs_torch.benchmarks.ec_recovery_bench", "--decode-ab"], "decode_metric")])
+def test_benches_fail_without_gpu_with_an_error_line(cmd, key):
+    """Without a GPU a bench prints its result line with an error and exits
+    non-zero; it never measures the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the bench would run for real")
+    r = subprocess.run([sys.executable, *cmd], cwd=ROOT, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode != 0
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    assert key in line and "device='cpu'" in line["error"]
+    if key == "metric":
+        assert line["metric"] == "rs8+2_crc32c_stripe_encode" and line["value"] == 0
