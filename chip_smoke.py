@@ -7,16 +7,19 @@ every kernel.
 Phases (any failure exits non-zero; nothing is caught into "ok"):
   0  report the card; build the kernels from t3fs_torch/csrc (into the
      ignored t3fs_torch/_build/) and print the build time
-  1  B1 (CRC words) against its plain PyTorch version: random segments,
-     4 MiB chunks x 64, the check vector, front-padded odd lengths
+  1  B1 (CRC words) against its plain PyTorch version: random segments
+     (4096 rows, and ragged 16-row units: 1, 7, 1001 rows), every run
+     length 1..16 (chunks of 1..17, 24, 40 segments), 4 MiB chunks x 64, the
+     check vector, front-padded odd lengths
   2  B2 (RAID-6 words) and the fused stripe step against plain, at the
      stripe bench's shape: RS(8+2), 1 MiB shards, 12 stripes
   3  storage write path: >= 256 concurrent payload_crc on the "tpu"
      checksum backend (mostly 4 MiB), every CRC checked
   4  EC stripe write path: 24 concurrent TorchECCodec.encode_verified on
      8 x 1 MiB shards, every parity byte and CRC checked
-  5  CUDA-event times of B1, B2 and the fused step beside their bounds
-     (each the median of REPEATS samples, with their min and max)
+  5  CUDA-event times of B1 (64 x 4 MiB from HBM; 2 x 4 MiB resident in
+     L2, replayed from a CUDA graph), B2 and the fused step beside their
+     bounds (each the median of REPEATS samples, with their min and max)
   6  B3 (RAID-6 decode words), B4 (repair words) and B5 (byte-plane
      bit-matmul) against their plain versions: B3 on all 55 RS(8+2)
      erasure patterns of one 8 x 1 MiB stripe and at 12 stripes for two
@@ -47,6 +50,13 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      (B4 + B1), 6 msr_decode_verified losing (0, 9) or (4, 9) (dense
      product + B1); one stripe of each against encode_np / repair_np /
      decode_np, every rebuilt byte and CRC checked
+ 17  codes past one kernel launch: B5's tiles (RAID-6 k = 254 decode in two
+     input groups, RS(12+12) encode in two row groups, RS(28+8) decode of 8
+     shards), B3's wrapper at k = 40 (B5 on the byte view) and B4 over 40
+     helpers (two groups) against their plain versions; then 42 concurrent
+     TorchECCodec calls at RAID-6 k = 40 and k = 254, RS(12+12) and RS(28+8)
+     (encode_verified, reconstruct and reconstruct_verified of one and two
+     losses, a 40-helper repair), every parity, rebuilt byte and CRC checked
  14  CUDA-event times of B6 at both row shapes (beside B1's at the same
      bytes), the byte encode step and the PM-MSR repair step
  16  H1 (the bench's calibration copy) against its plain version at the
@@ -59,11 +69,11 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
 
 Every phase that drives TorchECCodec checks that no call took a plain
 route on the card.  Launch counts: the counters are set to 0 just before
-each main-path run (phases 3, 4, 7, 8, 9, 12 and 13, and the bench run of
-phase 16, which counts H1 only: its hundreds of B1 and B2 launches
-would drown the codec paths' counts) and read just after; launches made to
-compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11, 14 and
-16's checks) are not counted.
+each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, and
+the bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
+launches would drown the codec paths' counts) and read just after; launches
+made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
+14, 16's checks and 17's kernel checks) are not counted.
 """
 
 from __future__ import annotations
@@ -178,9 +188,19 @@ def phase_crc(dev: torch.device, g: torch.Generator, chunk_words: int,
 
     worst = 0
     t1 = codec_tables(1, device=dev)
-    segs = rand_words(g, dev, seg_rows, 128)
-    e = max_abs_err(cc.crc_seg_words(segs, t1), cc.crc_seg_words_plain(segs, t1))
-    log(f"[1] crc_seg_words ({seg_rows}, 128): max_abs_err={e}")
+    for rows in (seg_rows, 1, 7, 1001):          # whole and ragged 16-row units
+        segs = rand_words(g, dev, rows, 128)
+        e = max_abs_err(cc.crc_seg_words(segs, t1), cc.crc_seg_words_plain(segs, t1))
+        log(f"[1] crc_seg_words ({rows}, 128): max_abs_err={e}")
+        worst = max(worst, e)
+    # every run length the wrapper picks: spw = nseg for nseg <= 16
+    e = 0
+    for nseg in (*range(1, 17), 17, 24, 40):
+        tn = codec_tables(nseg, device=dev)
+        w = rand_words(g, dev, 3, nseg * 128)
+        e = max(e, max_abs_err(cc.crc_words_raw(w, tn), cc.crc_words_raw_plain(w, tn)))
+    log(f"[1] crc_words_raw (3, nseg * 128) for nseg 1..17, 24, 40 (every run "
+        f"length 1..16): max_abs_err={e}")
     worst = max(worst, e)
 
     tables = codec_tables(chunk_words // 128, device=dev)
@@ -373,6 +393,16 @@ def kernel_times(fn) -> dict:
             "max_ms": samples[-1]}
 
 
+def graph_kernel_times(fn) -> dict:
+    """kernel_times of 20 calls captured once in a CUDA graph and replayed:
+    for a call too short to hide the host's launch overhead."""
+    from t3fs_torch.benchmarks.devbench import graph_samples
+
+    samples = graph_samples(fn, 20, REPEATS)
+    return {"ms": samples[len(samples) // 2], "min_ms": samples[0],
+            "max_ms": samples[-1]}
+
+
 def log_times(phase: int, out: dict) -> None:
     for name, t in out.items():
         log(f"[{phase}] {name} {t['shape']}: {t['ms'] * 1e3:.1f} us, median of "
@@ -397,7 +427,14 @@ def phase_times(dev: torch.device, g: torch.Generator) -> dict:
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "shape": f"({CHUNKS}, {cw}) = {CHUNKS} x 4 MiB chunks",
     }
-    del words
+    l2 = words[:2]               # 8 MiB: stays in the 50 MB L2 across calls
+    out["crc_words 8 MiB, L2-resident, CUDA graph"] = {
+        **graph_kernel_times(lambda: cc.crc_words_raw(l2, tcrc)),
+        "plain_ms": time_ms(lambda: cc.crc_words_raw_plain(l2, tcrc), 2, 1),
+        "bound_ms": l2.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "shape": f"(2, {cw}) = 2 x 4 MiB chunks",
+    }
+    del words, l2
     sw = SHARD_BYTES // 4
     trs = codec_tables(sw // 128, K, M, device=dev)
     data = rand_words(g, dev, STRIPES, K, sw)
@@ -1060,6 +1097,132 @@ async def phase_msr(dev: torch.device) -> dict:
     return total
 
 
+# --- phase 17: codes past one kernel launch ----------------------------------
+
+# RAID-6 at k = 40 and k = 254 (the most RAID-6 takes), RS(12+12) and
+# RS(28+8): B3 past k = 32 runs B5, B5 past 8 output shards or 227 KiB of
+# tables runs as several tiles, B4 past 32 helpers as several groups.  Shards
+# of 1 MiB, 256 KiB at k = 254 (a 64 MiB stripe).
+BIG_CODES = ((40, 2, SHARD_BYTES), (254, 2, SHARD_BYTES // 4),
+             (12, 12, SHARD_BYTES), (28, 8, SHARD_BYTES))
+# a data shard lost, then two shards (data and parity, or two data)
+BIG_LOSSES = {(40, 2): ((5,), (0, 41)), (254, 2): ((200,), (3, 254)),
+              (12, 12): ((11,), (0, 13)), (28, 8): ((27,), (4, 30))}
+
+
+def phase_big_kernels(dev: torch.device, g: torch.Generator) -> dict[str, int]:
+    """B5's tiles (RAID-6 k = 254 decode: two input groups; RS(12+12)
+    encode: two row groups; RS(28+8) decode: one 56 KiB tile), B3's wrapper
+    at k = 40 (B5 on the byte view) and B4 over 40 helpers (two groups)
+    against their plain versions, at 2 stripes of 64 KiB shards."""
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.repair_program import schedule_repair_program
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.tables import decode_tables, encode_map_tables, repair_tables
+
+    L = 64 << 10
+    errs = {"rs_bitmatmul": 0, "repair_words": 0}
+    for label, gmap in (
+            ("RAID-6 k=254 decode want=(2, 255)", decode_tables(
+                (0, 1, *range(3, 255)), (2, 255), default_rs(254, 2), dev)),
+            ("RS(12+12) encode", encode_map_tables(default_rs(12, 12), dev)),
+            ("RS(28+8) decode of 8", decode_tables(
+                tuple(range(4, 32)), (0, 1, 2, 3, 32, 33, 34, 35), default_rs(28, 8), dev))):
+        shards = rand_bytes(g, dev, 2, gmap.k, L)
+        e = max_abs_err(cc.rs_bitmatmul(shards, gmap), cc.rs_bitmatmul_plain(shards, gmap))
+        log(f"[17] rs_bitmatmul {label} in {len(gmap.tiles)} tile(s) at (2, {gmap.k}, {L}): "
+            f"max_abs_err={e}")
+        errs["rs_bitmatmul"] = max(errs["rs_bitmatmul"], e)
+    rs = default_rs(40, 2)
+    present = (*range(1, 40), 41)
+    dec = decode_tables((*range(1, 39), 40, 41), (0, 39), rs, dev)
+    words = rand_words(g, dev, 2, 40, L // 4)
+    e = max_abs_err(cc.rs_reconstruct_words(words, dec),
+                    cc.rs_reconstruct_words_plain(words, dec))
+    log(f"[17] rs_reconstruct_words RAID-6 k=40 (B5 on the byte view) at (2, 40, "
+        f"{L // 4}): max_abs_err={e}")
+    errs["rs_bitmatmul"] = max(errs["rs_bitmatmul"], e)
+    row = rs.reconstruct_gfmatrix(list(present), [0])[0]
+    rep = repair_tables(schedule_repair_program(tuple(int(c) for c in row)), rs)
+    e = max_abs_err(cc.repair_words(words, rep), cc.repair_words_plain(words, rep))
+    log(f"[17] repair_words over 40 helpers in {len(rep.groups)} groups at (2, 40, "
+        f"{L // 4}): max_abs_err={e}")
+    errs["repair_words"] = e
+    expect(max(errs.values()) == 0, f"tiled B5 / grouped B4 disagree with plain: {errs}")
+    return errs
+
+
+async def phase_big_codes(dev: torch.device) -> dict:
+    """The EC routes at the codes of BIG_CODES: encode_verified, reconstruct
+    and reconstruct_verified of one and two lost shards, and at RAID-6 k =
+    40 a repair over 40 helpers; 2 stripes a code.  Parity against the plain
+    PyTorch bit-matmul (its first 64 KiB of stripe 0 against
+    RSCode.encode_ref), every rebuilt shard against the stripe, every CRC
+    against plain B1."""
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.torch_codec import make_rs_encode_matmul
+
+    rng = np.random.default_rng(SEED + 17)
+    codec = TorchECCodec(device=dev)
+    stripes = {}
+    for k, m, L in BIG_CODES:
+        data = rng.integers(0, 256, (2, k, L), dtype=np.uint8)
+        parity = make_rs_encode_matmul(default_rs(k, m), dev)(
+            torch.from_numpy(data).to(dev)).cpu().numpy()
+        head = 64 << 10           # byte positions are independent: RSCode on a slice
+        expect(np.array_equal(parity[0, :, :head],
+                              default_rs(k, m).encode_ref(data[0, :, :head])),
+               f"RS({k}+{m}) stripe 0: plain bit-matmul != RSCode.encode_ref")
+        full = np.concatenate([data, parity], axis=1)
+        stripes[k, m] = (full, plain_shard_crcs(full, dev))
+    rs40 = default_rs(40, 2)
+    helpers = (*range(1, 40), 41)
+    coeffs = tuple(int(c) for c in rs40.reconstruct_gfmatrix(list(helpers), [0])[0])
+
+    calls, checks = [], []
+    for (k, m), (full, crcs) in stripes.items():
+        for i in range(2):
+            calls.append(codec.encode_verified(full[i, :k], k, m))
+            checks.append((full[i, k:], crcs[i]))
+            for lost in BIG_LOSSES[k, m]:
+                present = present_of(lost, k + m, k)
+                rows = np.ascontiguousarray(full[i, list(present)])
+                calls.append(codec.reconstruct_verified(rows, present, lost, k, m))
+                checks.append((full[i, list(lost)], crcs[i, list(present + lost)]))
+                calls.append(codec.reconstruct(rows, present, lost, k, m))
+                checks.append((full[i, list(lost)], None))
+            if (k, m) == (40, 2):
+                calls.append(codec.repair(np.ascontiguousarray(full[i, list(helpers)]),
+                                          coeffs, k, m))
+                checks.append((full[i, 0], crcs[i, 0]))
+    cc.reset_launches()
+    t0 = time.perf_counter()
+    outs = await asyncio.gather(*calls)
+    wall = time.perf_counter() - t0
+    launches = dict(cc.launches)
+    await codec.close()
+    bad = 0
+    for out, (want, want_crc) in zip(outs, checks):
+        got, crc = (out, None) if want_crc is None else out
+        bad += not np.array_equal(got, want)
+        if want_crc is not None:
+            bad += not np.array_equal(np.asarray(crc, dtype=np.uint32), want_crc)
+    log(f"[17] codes past one launch, RAID-6 k=40 and k=254, RS(12+12), RS(28+8): "
+        f"{len(calls)} concurrent calls, {codec.batches} groups, codec_counts="
+        f"{codec.codec_counts}, launches={launches}, wall {wall:.3f} s (first use of "
+        f"each code's tables included); wrong results {bad}")
+    expect(bad == 0, "codes past one launch disagree")
+    expect_routes(codec, ("cuda-encode-words", "cuda-decode-words", "cuda-rec-words",
+                          "cuda-repair-words", "cuda-encode-bytes", "cuda-decode-bytes",
+                          "cuda-bitmatmul"))
+    expect(launches["rs_bitmatmul"] > 0 and launches["repair_words"] > 0
+           and launches["crc_words"] > 0 and launches["crc_bytes"] > 0,
+           "codes past one launch must launch B5, B4, B1 and B6")
+    return launches
+
+
 # --- phase 14: byte-path and PM-MSR times -----------------------------------
 
 def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
@@ -1243,6 +1406,8 @@ def main() -> int:
     e_bytes = phase_crc_bytes(dev, g)
     main_runs.append(asyncio.run(phase_byte_routes(dev)))
     main_runs.append(asyncio.run(phase_msr(dev)))
+    big_errs = phase_big_kernels(dev, g)
+    main_runs.append(asyncio.run(phase_big_codes(dev)))
     byte_times = phase_byte_times(dev, g, times["crc_words"])
     e_copy, copy_times, bench_launches = phase_bench(dev, g)
     main_runs.append(bench_launches)
@@ -1265,10 +1430,11 @@ def main() -> int:
                                  read_errs["rs_reconstruct_words"],
                                  read_times["rs_reconstruct_words want=(0, 9)"]),
         "repair_words": ("t3fs_torch/csrc/repair_words.cu",
-                         "t3fs/ops/pallas_codec.py:587", read_errs["repair_words"],
+                         "t3fs/ops/pallas_codec.py:587",
+                         max(read_errs["repair_words"], big_errs["repair_words"]),
                          read_times["repair_words slot 3, XOR fold"]),
-        "rs_bitmatmul": ("t3fs_torch/csrc/rs_bitmatmul.cu",
-                         "t3fs/ops/pallas_codec.py:68", read_errs["rs_bitmatmul"],
+        "rs_bitmatmul": ("t3fs_torch/csrc/rs_bitmatmul.cu", "t3fs/ops/pallas_codec.py:68",
+                         max(read_errs["rs_bitmatmul"], big_errs["rs_bitmatmul"]),
                          read_times[f"rs_bitmatmul RS(6+3) decode want={LOST63}"]),
         "crc_bytes": ("t3fs_torch/csrc/crc_bytes.cu",
                       "t3fs/ops/pallas_codec.py:116", e_bytes,

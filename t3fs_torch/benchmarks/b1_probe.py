@@ -1,0 +1,334 @@
+"""The measurements that chose B1's design (t3fs_torch/csrc/crc_words.cu).
+
+    python3 -m t3fs_torch.benchmarks.b1_probe [--csrc DIR [--caps 1,2,3]]
+
+1. With --csrc, B1's nibble-lookup design as built from the sources in DIR
+   (t3fs_torch/csrc/ of a checkout before the tensor-core design, e.g.
+   `git archive bc5a43a t3fs_torch/csrc`), through its C entry
+   t3fs_crc32c_words_raw, at 64 x 4 MiB (from HBM) and at 2 x 4 MiB (8 MiB,
+   which stays in the 50 MB L2 across calls).  With --caps, scratch copies
+   of DIR whose `kBlocksPerSm = N` line is set to each N are timed too (the
+   grid-size cap of that design in crc_common.cuh); DIR is not changed.
+2. mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc: which bit of
+   a .b32 register of A pairs with which bit of B (random fragments against
+   the host under PTX's fragment layout, and one-hot A against one-hot B),
+   and its sustained rate in mma per clock per SM (clock64 around a loop of
+   independent chains, one block an SM), beside m16n8k32 s8 for scale.
+
+Times are CUDA events, the median of 5 samples of 20 calls (the L2-resident
+one also replayed from a CUDA graph, without the host's launch overhead).
+Prints one JSON line last, with the card's name and power limit.  Needs a GPU and
+nvcc; the libraries go to t3fs_torch/_build/probe/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from t3fs_torch import resolve_device
+from t3fs_torch.benchmarks.devbench import card_line, graph_samples, median_ms
+from t3fs_torch.ops import _build
+from t3fs_torch.ops.blocks import pick_block
+from t3fs_torch.ops.crc32c import default_matrices
+from t3fs_torch.ops.tables import (
+    SEG_BYTES, SEG_WORDS, _crc_word_weights, _pack_columns, codec_tables)
+
+PROBE_DIR = _build.BUILD_DIR / "probe"
+HBM_BYTES_PER_S = 3.35e12
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+MMA_SRC = r"""
+#include <cstdint>
+
+#define MMA_B1(c, a, b)                                                      \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "          \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"               \
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
+#define MMA_S8(c, a, b)                                                      \
+  asm volatile(                                                             \
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "                    \
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"               \
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]))
+
+// one warp: a (32 lanes x 4 regs), b (32 x 2) -> d (32 x 4), as the lanes hold them
+__global__ void pairing_kernel(const uint32_t* a, const uint32_t* b, int* d) {
+  const int l = threadIdx.x;
+  uint32_t ra[4] = {a[4 * l], a[4 * l + 1], a[4 * l + 2], a[4 * l + 3]};
+  uint32_t rb[2] = {b[2 * l], b[2 * l + 1]};
+  int c[4] = {0, 0, 0, 0};
+  MMA_B1(c, ra, rb);
+  for (int i = 0; i < 4; ++i) d[4 * l + i] = c[i];
+}
+
+template <int CH, bool kB1>
+__global__ void rate_kernel(int iters, long long* cycles, int* sink) {
+  uint32_t a[4], b[2];
+  for (int i = 0; i < 4; ++i) a[i] = (threadIdx.x + 1) * 0x9E3779B9u * (i + 3);
+  for (int i = 0; i < 2; ++i) b[i] = (threadIdx.x + 7) * 0x85EBCA6Bu * (i + 5);
+  int c[CH][4];
+  for (int j = 0; j < CH; ++j)
+    for (int i = 0; i < 4; ++i) c[j][i] = 0;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      if (kB1) MMA_B1(c[j], a, b); else MMA_S8(c[j], a, b);
+    }
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+  int s = 0;
+  for (int j = 0; j < CH; ++j) s += c[j][0] ^ c[j][1] ^ c[j][2] ^ c[j][3];
+  if (s == 0x7fffffff) sink[0] = s;
+}
+
+extern "C" {
+int probe_pairing(const void* a, const void* b, void* d) {
+  pairing_kernel<<<1, 32>>>((const uint32_t*)a, (const uint32_t*)b, (int*)d);
+  return (int)cudaGetLastError();
+}
+int probe_rate(int b1, int chains, int blocks, int warps, int iters, void* cycles,
+               void* sink) {
+  long long* cy = (long long*)cycles;
+  int* s = (int*)sink;
+  const int t = 32 * warps;
+  if (b1) {
+    if (chains == 2) rate_kernel<2, true><<<blocks, t>>>(iters, cy, s);
+    else if (chains == 4) rate_kernel<4, true><<<blocks, t>>>(iters, cy, s);
+    else rate_kernel<8, true><<<blocks, t>>>(iters, cy, s);
+  } else {
+    if (chains == 2) rate_kernel<2, false><<<blocks, t>>>(iters, cy, s);
+    else if (chains == 4) rate_kernel<4, false><<<blocks, t>>>(iters, cy, s);
+    else rate_kernel<8, false><<<blocks, t>>>(iters, cy, s);
+  }
+  return (int)cudaGetLastError();
+}
+}
+"""
+
+
+def _nvcc_all(jobs: list[tuple[Path, Path]]) -> None:
+    """Compile each (source, library) pair, all at once."""
+    nvcc = _build._nvcc()
+    procs = [(src, subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, lib in jobs]
+    for src, proc in procs:
+        log, _ = proc.communicate()
+        for line in log.strip().splitlines():
+            print(f"nvcc {src.parent.name}/{src.name}: {line.strip()}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}")
+
+
+def _scratch_b1(csrc: Path, cap: int | None) -> tuple[Path, Path]:
+    """A copy of csrc's B1 sources (kBlocksPerSm set to `cap` if given)."""
+    d = PROBE_DIR / f"b1_{'as_is' if cap is None else f'cap{cap}'}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for f in [csrc / "crc_words.cu", *csrc.glob("*.cuh")]:
+        text = f.read_text()
+        if cap is not None and "kBlocksPerSm = " in text:
+            head, tail = text.split("kBlocksPerSm = ", 1)
+            text = head + f"kBlocksPerSm = {cap};" + tail.split(";", 1)[1]
+        (d / f.name).write_text(text)
+    return d / "crc_words.cu", d / "libcrc_words.so"
+
+
+def nibble_table() -> np.ndarray:
+    """The table of B1's nibble-lookup design, whose layout B6 shares: entry
+    [j][v][w % 4][w // 4] is the XOR of the packed CRC columns of the set
+    bits of nibble value v at bits 4j..4j+3 of word w."""
+    cols = _pack_columns(_crc_word_weights().transpose(1, 2, 0)).view(np.uint32)
+    table = np.zeros((8, 16, 4, 32), dtype=np.uint32)
+    for j in range(8):
+        for v in range(16):
+            acc = np.zeros(SEG_WORDS, dtype=np.uint32)
+            for t in range(4):
+                if (v >> t) & 1:
+                    acc ^= cols[:, 4 * j + t]
+            table[j, v] = acc.reshape(32, 4).T
+    return table.reshape(-1).view(np.int32)
+
+
+def time_b1(lib: ctypes.CDLL, words: torch.Tensor, tables, table: torch.Tensor,
+            shift_cols: torch.Tensor) -> tuple[float, float, torch.Tensor]:
+    """Median ms of the lookup design's t3fs_crc32c_words_raw over `words`,
+    called from the host and replayed from a CUDA graph, and its output."""
+    fn = lib.t3fs_crc32c_words_raw
+    fn.argtypes = [_P, _LL, _I, _I, _P, _P, _P, _P, _P, _P]
+    n = words.shape[0]
+    spw = pick_block(tables.nseg, 16)
+    partial = torch.empty(n * (tables.nseg // spw), dtype=torch.int32, device=words.device)
+    out = torch.empty(n, dtype=torch.int32, device=words.device)
+
+    def call():
+        rc = fn(words.data_ptr(), n, tables.nseg, spw, table.data_ptr(),
+                tables.combine_cols.data_ptr(), shift_cols.data_ptr(),
+                partial.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"t3fs_crc32c_words_raw: CUDA error {rc}")
+
+    return median_ms(call), graph_samples(call)[2], out
+
+
+def probe_b1(csrc: Path, caps: list[int]) -> dict:
+    from t3fs_torch.ops import cuda_codec as cc
+
+    variants = [None, *caps]
+    jobs = [_scratch_b1(csrc, cap) for cap in variants]
+    _nvcc_all(jobs)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261016)
+    chunk = (4 << 20) // 4
+    tables = codec_tables(chunk // SEG_WORDS, device=dev)
+    table = torch.from_numpy(nibble_table()).to(dev)
+    shift_cols = torch.from_numpy(
+        _pack_columns(default_matrices().shift_matrix(SEG_BYTES))).to(dev)
+    words = torch.randint(-2**31, 2**31, (64, chunk), dtype=torch.int32, device=dev,
+                          generator=g)
+    ref = cc.crc_words_raw_plain(words[:2], tables)
+    res = {}
+    for cap, (_src, path) in zip(variants, jobs):
+        lib = ctypes.CDLL(str(path))
+        name = "as built" if cap is None else f"grid capped at {cap} blocks/SM"
+        hbm, _, out = time_b1(lib, words, tables, table, shift_cols)
+        l2, l2_graph, out2 = time_b1(lib, words[:2], tables, table, shift_cols)
+        ok = torch.equal(out[:2], ref) and torch.equal(out2, ref)
+        res[name] = {"hbm_64x4MiB_ms": hbm, "l2_2x4MiB_ms": l2,
+                     "l2_2x4MiB_graph_ms": l2_graph, "exact": ok}
+        print(f"B1 {name}: 64 x 4 MiB {hbm * 1e3:.1f} us "
+              f"({words.numel() * 4 / HBM_BYTES_PER_S * 1e6 / (hbm * 1e3) * 100:.1f}% "
+              f"of the 80.1 us byte bound); 2 x 4 MiB (L2-resident) {l2 * 1e3:.1f} us, "
+              f"{l2_graph * 1e3:.1f} us replayed from a CUDA graph; exact against "
+              f"plain: {ok}", flush=True)
+    return res
+
+
+def _frag_host(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """D = popc(A AND B) of m16n8k256 from the lanes' registers, read by
+    PTX's fragment layout with bit i of a register as element i of its
+    32: a[lane, r]: row g (+8 for r odd), k = 32 t (+128 for r >= 2) + i;
+    b[lane, r]: k = 32 t (+128 for r = 1) + i, column g; d[lane, r]: row
+    g (+8 for r >= 2), column 2 t + (r & 1); g = lane // 4, t = lane % 4."""
+    A = np.zeros((16, 256), dtype=np.int64)
+    B = np.zeros((256, 8), dtype=np.int64)
+    bits = np.arange(32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for r in range(4):
+            row, k0 = g + 8 * (r & 1), 32 * t + 128 * (r >> 1)
+            A[row, k0:k0 + 32] = (int(a[lane, r]) >> bits) & 1
+        for r in range(2):
+            k0 = 32 * t + 128 * r
+            B[k0:k0 + 32, g] = (int(b[lane, r]) >> bits) & 1
+    D = A @ B
+    d = np.zeros((32, 4), dtype=np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for r in range(4):
+            d[lane, r] = D[g + 8 * (r >> 1), 2 * t + (r & 1)]
+    return d
+
+
+def probe_mma(lib: ctypes.CDLL) -> dict:
+    dev = torch.device("cuda")
+    lib.probe_pairing.argtypes = [_P, _P, _P]
+    lib.probe_rate.argtypes = [_I, _I, _I, _I, _I, _P, _P]
+
+    def run(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+        ta = torch.from_numpy(a.view(np.int32)).to(dev)
+        tb = torch.from_numpy(b.view(np.int32)).to(dev)
+        d = torch.zeros(32, 4, dtype=torch.int32, device=dev)
+        if lib.probe_pairing(ta.data_ptr(), tb.data_ptr(), d.data_ptr()):
+            raise RuntimeError("probe_pairing launch failed")
+        torch.cuda.synchronize()
+        return d.cpu().numpy().astype(np.int64)
+
+    rng = np.random.default_rng(7)
+    random_ok = all(
+        np.array_equal(run(a, b), _frag_host(a, b))
+        for a, b in ((rng.integers(0, 2**32, (32, 4), dtype=np.uint32),
+                      rng.integers(0, 2**32, (32, 2), dtype=np.uint32))
+                     for _ in range(8)))
+    # one-hot: bit p of lane 0's a0 (row 0) against bit q of lane 0's b0 (column 0)
+    onehot_ok = True
+    for p in range(32):
+        for q in (p, (p + 1) % 32, 31 - p):
+            a = np.zeros((32, 4), dtype=np.uint32)
+            b = np.zeros((32, 2), dtype=np.uint32)
+            a[0, 0], b[0, 0] = np.uint32(1 << p), np.uint32(1 << q)
+            onehot_ok &= int(run(a, b)[0, 0]) == int(p == q)
+    print(f"mma b1 pairing: random fragments match PTX's layout with bit i of "
+          f"a register as element i: {random_ok}; one-hot bit p of A pairs "
+          f"with bit p of B only: {onehot_ok}", flush=True)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cycles = torch.zeros(sms, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    iters = 4096
+    rates = {}
+    for b1, label in ((1, "b1 m16n8k256"), (0, "s8 m16n8k32")):
+        for warps in (4, 8, 16):
+            for chains in (2, 4, 8):
+                if lib.probe_rate(b1, chains, sms, warps, iters, cycles.data_ptr(),
+                                  sink.data_ptr()):
+                    raise RuntimeError("probe_rate launch failed")
+                torch.cuda.synchronize()
+                per_sm = warps * chains * iters
+                rate = per_sm / float(cycles.max().item())
+                rates[f"{label} warps={warps} chains={chains}"] = rate
+                print(f"mma {label}: {warps} warps x {chains} chains an SM: "
+                      f"{rate:.4f} mma per clock per SM", flush=True)
+    best = max(v for k, v in rates.items() if k.startswith("b1"))
+    return {"pairing_random": random_ok, "pairing_onehot": onehot_ok,
+            "rates": rates, "b1_best_per_clock_per_sm": best}
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--csrc", type=Path,
+                    help="csrc/ of a checkout with the lookup design of B1")
+    ap.add_argument("--caps", default="",
+                    help="comma-separated kBlocksPerSm caps to time as scratch copies")
+    args = ap.parse_args(argv)
+    try:
+        resolve_device("cuda")
+    except RuntimeError as e:            # no GPU: nothing to probe
+        print(json.dumps({"card": None, "error": str(e)}))
+        return 1
+    card = card_line()
+    print(card, flush=True)
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    caps = [int(c) for c in args.caps.split(",") if c]
+    out = {"card": card}
+    if args.csrc:
+        out["b1"] = probe_b1(args.csrc.resolve(), caps)
+    src = PROBE_DIR / "mma_probe.cu"
+    src.write_text(MMA_SRC)
+    lib = PROBE_DIR / "libmma_probe.so"
+    _nvcc_all([(src, lib)])
+    out["mma"] = probe_mma(ctypes.CDLL(str(lib)))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -199,6 +199,23 @@ def event_ms(fn, iters: int, warm: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_samples(fn, calls: int = 20, reps: int = 5) -> list[float]:
+    """ms per call of fn, sorted: `reps` samples, each a replay of `calls`
+    calls captured once in a CUDA graph, so the host's launch overhead is
+    out of calls too short to hide it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # builds and loads outside capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return sorted(event_ms(graph.replay, 1, warm=1 if i == 0 else 0) / calls
+                  for i in range(reps))
+
+
 def median_ms(fn) -> float:
     """The median of 5 event_ms samples of 20 calls each (2 warm-up calls
     before the first)."""

@@ -43,8 +43,10 @@ codec:
                      pm-msr multi-loss decode: the dense GF(2) product, CRCs
                      on B1 or B6 (make_msr_decode_step)  -> "cuda-msr-decode"
 
-B5 takes at most 8 output shards and 48 KiB of tables; a code beyond that
-runs on a CPU codec (the plain version) and raises on a CUDA one.
+Every code RSCode builds runs on every route: B3 past k = 32 runs B5 on the
+words' byte view, B5 runs one launch per tile of <= 8 output shards and
+<= 227 KiB of tables, B4 one per group of <= 32 helpers (cuda_codec); a
+tiled call counts once under its route's name.
 """
 
 from __future__ import annotations

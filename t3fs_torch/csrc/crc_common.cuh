@@ -1,15 +1,16 @@
-// The CRC32C pieces shared by the word kernel (crc_words.cu, B1) and the
-// byte kernel (crc_bytes.cu, B6): the nibble table layout, the warp
-// reductions, the GF(2) matrix-vector product and the kernel that XORs a
-// chunk's run partials.  _build.py hashes this header into every library's
-// name, so an edit here rebuilds both.
+// The CRC32C pieces of the word kernel (crc_words.cu, B1) and the byte
+// kernel (crc_bytes.cu, B6).  Both use the block shape, the warp reductions,
+// the GF(2) matrix-vector product and the kernel that XORs a chunk's run
+// partials; the nibble table, its lookups and grid_for are B6's only (B1
+// multiplies on the tensor cores).  _build.py hashes this header into every
+// library's name, so an edit here rebuilds both.
 //
 // Raw CRC32C (init 0, no final xor) is GF(2)-linear in the message bits, so
 // a 512-byte segment's CRC is the XOR of one 32-bit column per set bit.  The
-// table holds, per (word w of the segment, nibble j of the word, nibble
-// value v), the XOR of that nibble's columns: 128 * 8 * 16 u32 = 64 KiB of
-// dynamic shared memory, laid out [j][v][w % 4][w / 4] so that when lane l
-// holds words 4l..4l+3 the 32 lanes of a lookup hit 32 distinct banks.
+// nibble table holds, per (word w of the segment, nibble j of the word,
+// nibble value v), the XOR of that nibble's columns: 128 * 8 * 16 u32 = 64
+// KiB of dynamic shared memory, laid out [j][v][w % 4][w / 4] so that when
+// lane l holds words 4l..4l+3 the 32 lanes of a lookup hit 32 distinct banks.
 
 #pragma once
 

@@ -40,10 +40,11 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "t3fs_rs_reconstruct_words": [_P, _P, _LL, _I, _I, _LL, _P, _I, _P],
     },
     "repair_words": {
-        "t3fs_repair_words": [_P, _P, _LL, _I, _LL, _P, _I, _I, _P],
+        "t3fs_repair_words": [_P, _P, _LL, _I, _I, _I, _LL, _P, _I, _I, _I, _P],
     },
     "rs_bitmatmul": {
-        "t3fs_rs_bitmatmul": [_P, _P, _P, _LL, _I, _I, _LL, _P],
+        "t3fs_rs_bitmatmul": [_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _I,
+                              _P],
     },
     "crc_bytes": {
         "t3fs_crc32c_bytes_raw": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P],

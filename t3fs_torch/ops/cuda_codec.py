@@ -11,11 +11,15 @@ version beside it and a launch counter:
                   (pallas_codec.py:261)
   rs_reconstruct_words
                   B3: RAID-6 decode of 1 or 2 shards on packed words -- replaces
-                  _rs_reconstruct_words_kernel (pallas_codec.py:502)
+                  _rs_reconstruct_words_kernel (pallas_codec.py:502); past
+                  k = 32 the wrapper runs B5 on the words' byte view
   repair_words    B4: one scheduled repair row (Horner over bit planes) --
-                  replaces _repair_words_kernel (pallas_codec.py:587)
+                  replaces _repair_words_kernel (pallas_codec.py:587); one
+                  launch per group of <= 32 helpers, XOR-accumulated
   rs_bitmatmul    B5: byte-plane GF(2) map of any RS(k+m) code, encode or
-                  decode -- replaces _rs_kernel (pallas_codec.py:68)
+                  decode -- replaces _rs_kernel (pallas_codec.py:68); one
+                  launch per tile of <= 8 output shards and <= 227 KiB of
+                  tables, XOR-accumulated over input groups
   crc_bytes       B6: raw CRC32C of byte rows of any length and alignment,
                   front-padded to whole segments, and the row combine --
                   replaces _crc_seg_kernel (pallas_codec.py:116) and the
@@ -45,8 +49,8 @@ from t3fs_torch.ops.rs import RSCode, default_rs
 from t3fs_torch.ops.crc32c import default_matrices
 from t3fs_torch.ops.tables import (
     SEG_BYTES, SEG_WORDS, CodecTables, CrcBytesTables, GFMapTables,
-    RepairTables, codec_tables, crc_bytes_tables, crc_nseg, decode_tables,
-    encode_map_tables, repair_tables)
+    RepairGroup, RepairTables, codec_tables, crc_bytes_tables, crc_nseg,
+    decode_tables, encode_map_tables, repair_tables)
 from t3fs_torch.ops.torch_codec import i32, pack_bits_u32, xtimes_i32
 
 # launches of each kernel by its wrapper (kernel launches only, never the
@@ -56,12 +60,11 @@ launches: dict[str, int] = {"crc_words": 0, "rs_raid6_words": 0,
                             "rs_reconstruct_words": 0, "repair_words": 0,
                             "rs_bitmatmul": 0, "crc_bytes": 0}
 
-# consecutive segments one warp folds before its partial is written
+# consecutive segments one warp folds before its partial is written (B1
+# takes at most 16, two of its tensor-core n-tiles)
 _RUN_SEGS = 16
-# the kernels' parameter limits (csrc/*.cu)
+# B3's limits (csrc/rs_reconstruct_words.cu); past them the wrapper runs B5
 _B3_MAX_K, _B3_MAX_WANT = 32, 2
-_B4_MAX_HELPERS = 32
-_B5_MAX_ROWS, _B5_MAX_TABLE_BYTES = 8, 48 * 1024
 
 
 def reset_launches() -> None:
@@ -122,7 +125,7 @@ def crc_seg_words(rows: torch.Tensor, tables: CodecTables) -> torch.Tensor:
                          f"got {tuple(rows.shape)}")
     if rows.device.type == "cpu":
         return crc_seg_words_plain(rows, tables)
-    _check_cuda(rows, "crc_seg_words", tables.crc_nibble_table.device)
+    _check_cuda(rows, "crc_seg_words", tables.crc_mma_a.device)
     out = torch.empty(rows.shape[0], dtype=torch.int32, device=rows.device)
     if rows.shape[0] == 0:
         return out
@@ -130,7 +133,7 @@ def crc_seg_words(rows: torch.Tensor, tables: CodecTables) -> torch.Tensor:
 
     lib = library("crc_words")
     check(lib, lib.t3fs_crc_seg_words(
-        rows.data_ptr(), rows.shape[0], tables.crc_nibble_table.data_ptr(),
+        rows.data_ptr(), rows.shape[0], tables.crc_mma_a.data_ptr(),
         out.data_ptr(), _stream(rows)), "crc_seg_words")
     launches["crc_words"] += 1
     return out
@@ -158,7 +161,7 @@ def crc_words_raw(words: torch.Tensor, tables: CodecTables) -> torch.Tensor:
                          f"({tables.nseg * SEG_WORDS} words), got {W} words")
     if words.device.type == "cpu":
         return crc_words_raw_plain(words, tables)
-    _check_cuda(words, "crc_words_raw", tables.crc_nibble_table.device)
+    _check_cuda(words, "crc_words_raw", tables.crc_mma_a.device)
     out = torch.empty(n, dtype=torch.int32, device=words.device)
     if n == 0:
         return out
@@ -170,8 +173,8 @@ def crc_words_raw(words: torch.Tensor, tables: CodecTables) -> torch.Tensor:
     lib = library("crc_words")
     check(lib, lib.t3fs_crc32c_words_raw(
         words.data_ptr(), n, tables.nseg, spw,
-        tables.crc_nibble_table.data_ptr(), tables.combine_cols.data_ptr(),
-        tables.seg_shift_cols.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        tables.crc_mma_a.data_ptr(), tables.combine_cols.data_ptr(),
+        tables.seg_shift_bytes.data_ptr(), partial.data_ptr(), out.data_ptr(),
         _stream(words)), "crc_words_raw")
     launches["crc_words"] += 1
     return out
@@ -197,7 +200,7 @@ def rs_raid6_words(words: torch.Tensor, tables: CodecTables) -> torch.Tensor:
                          f"(k={tables.rs_k}), words are {tuple(words.shape)}")
     if words.device.type == "cpu":
         return rs_raid6_words_plain(words, tables)
-    _check_cuda(words, "rs_raid6_words", tables.crc_nibble_table.device)
+    _check_cuda(words, "rs_raid6_words", tables.crc_mma_a.device)
     n, k, W = words.shape
     out = torch.empty(n, 2, W, dtype=torch.int32, device=words.device)
     if n == 0 or W == 0:
@@ -235,18 +238,18 @@ def rs_reconstruct_words_plain(words: torch.Tensor, dec: GFMapTables) -> torch.T
 
 def rs_reconstruct_words(words: torch.Tensor, dec: GFMapTables) -> torch.Tensor:
     """(n, k, W) int32 present-shard words -> (n, |want|, W) int32 rebuilt
-    words, by the decode coefficients in `dec`."""
+    words, by the decode coefficients in `dec`.  Past B3's limits (k > 32
+    or more than 2 wanted shards) it is B5 on the byte view of the same
+    words, which is the same map byte by byte."""
     _check_words(words, 3, "rs_reconstruct_words")
     if words.shape[1] != dec.k:
         raise ValueError(f"rs_reconstruct_words: tables are for k={dec.k}, "
                          f"words are {tuple(words.shape)}")
+    if dec.k > _B3_MAX_K or dec.rows > _B3_MAX_WANT:
+        return rs_bitmatmul(words.view(torch.uint8), dec).view(torch.int32)
     if words.device.type == "cpu":
         return rs_reconstruct_words_plain(words, dec)
     _check_cuda(words, "rs_reconstruct_words")
-    if dec.k > _B3_MAX_K or dec.rows > _B3_MAX_WANT:
-        raise ValueError(f"rs_reconstruct_words: the kernel takes k <= "
-                         f"{_B3_MAX_K} and <= {_B3_MAX_WANT} wanted shards, "
-                         f"got k={dec.k}, {dec.rows}")
     n, k, W = words.shape
     out = torch.empty(n, dec.rows, W, dtype=torch.int32, device=words.device)
     if n == 0 or W == 0:
@@ -280,78 +283,109 @@ def repair_words_plain(words: torch.Tensor, rep: RepairTables) -> torch.Tensor:
     return acc
 
 
+def _repair_group_plain(words: torch.Tensor, grp: RepairGroup, poly_low: int,
+                        out: torch.Tensor, accumulate: bool) -> None:
+    """One group's launch in plain PyTorch: its Horner over its own planes,
+    written to `out` or XORed into it."""
+    acc = torch.zeros_like(out)
+    for b in range(len(grp.masks) - 1, -1, -1):
+        acc = xtimes_i32(acc, poly_low)
+        for j in range(grp.count):
+            if (grp.masks[b] >> j) & 1:
+                acc ^= words[:, grp.h0 + j]
+    if accumulate:
+        out ^= acc
+    else:
+        out.copy_(acc)
+
+
 def repair_words(words: torch.Tensor, rep: RepairTables) -> torch.Tensor:
     """(n, h, W) int32 helper words -> (n, W) int32 rebuilt words, by the
-    scheduled repair program in `rep`."""
+    scheduled repair program in `rep`: one launch per helper group, the
+    first writing `out` and the others XORing into it."""
     _check_words(words, 3, "repair_words")
     if words.shape[1] != rep.num_helpers:
         raise ValueError(f"repair_words: program over {rep.num_helpers} "
                          f"helpers, words are {tuple(words.shape)}")
-    if words.device.type == "cpu":
-        return repair_words_plain(words, rep)
-    _check_cuda(words, "repair_words")
-    if rep.num_helpers > _B4_MAX_HELPERS:
-        raise ValueError(f"repair_words: the kernel takes <= {_B4_MAX_HELPERS} "
-                         f"helpers, got {rep.num_helpers}")
     n, h, W = words.shape
     out = torch.empty(n, W, dtype=torch.int32, device=words.device)
     if n == 0 or W == 0:
         return out
-    from t3fs_torch.ops._build import check, library
+    cpu = words.device.type == "cpu"
+    if not cpu:
+        _check_cuda(words, "repair_words")
+        from t3fs_torch.ops._build import check, library
 
-    lib = library("repair_words")
-    masks = (ctypes.c_uint32 * len(rep.plane_masks))(*rep.plane_masks)
-    check(lib, lib.t3fs_repair_words(
-        words.data_ptr(), out.data_ptr(), n, h, W, masks,
-        len(rep.plane_masks) - 1, rep.poly_low, _stream(words)), "repair_words")
-    launches["repair_words"] += 1
+        lib = library("repair_words")
+    for gi, grp in enumerate(rep.groups):
+        if cpu:
+            _repair_group_plain(words, grp, rep.poly_low, out, gi > 0)
+            continue
+        masks = (ctypes.c_uint32 * len(grp.masks))(*grp.masks)
+        check(lib, lib.t3fs_repair_words(
+            words.data_ptr(), out.data_ptr(), n, h, grp.h0, grp.count, W, masks,
+            len(grp.masks) - 1, rep.poly_low, int(gi > 0), _stream(words)),
+            "repair_words")
+        launches["repair_words"] += 1
     return out
 
 
 # --- B5: byte-plane bit-matmul ----------------------------------------------
 
-def rs_bitmatmul_plain(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
-    """Plain version of rs_bitmatmul, the TPU kernel's arithmetic: unpack to
-    plane-major 0/1 planes (index b*k + i), one float32 product with the
-    (8r, 8k) bit matrix (sums <= 8k < 2^24, and 0/1 survive TF32, so it is
-    exact), mod 2, repack."""
-    n, k, L = shards.shape
-    x = shards.to(torch.int32)
+def _bitplanes(x: torch.Tensor, matrix_t: torch.Tensor) -> torch.Tensor:
+    """(n, k, L) uint8 through a plane-major (8r, 8k) bit matrix -> (n, r,
+    L) uint8, the TPU kernel's arithmetic: unpack to plane-major 0/1 planes
+    (index b*k + i), one float32 product (sums <= 8k < 2^24, and 0/1
+    survive TF32, so it is exact), mod 2, repack."""
+    n, _k, L = x.shape
+    x = x.to(torch.int32)
     planes = torch.cat([(x >> b) & 1 for b in range(8)], dim=1).float()
-    bits = (torch.matmul(gmap.bitmatrix_t, planes).to(torch.int32) & 1
-            ).reshape(n, 8, gmap.rows, L)
+    bits = (torch.matmul(matrix_t, planes).to(torch.int32) & 1
+            ).reshape(n, 8, matrix_t.shape[0] // 8, L)
     out = bits[:, 0]
     for b in range(1, 8):
         out = out | (bits[:, b] << b)
     return out.to(torch.uint8)
 
 
+def rs_bitmatmul_plain(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
+    """Plain version of rs_bitmatmul: the whole bit matrix in one product."""
+    return _bitplanes(shards, gmap.bitmatrix_t)
+
+
 def rs_bitmatmul(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
     """(n, k, L) uint8 shards -> (n, rows, L) uint8: the GF(2^8)-linear map
-    in `gmap` (encode parity or a decode pattern), any L."""
+    in `gmap` (encode parity or a decode pattern), any L.  One launch per
+    tile of gmap.tiles; a tile that does not start at input 0 XORs into the
+    rows its row group's first tile wrote."""
     _check_words(shards, 3, "rs_bitmatmul", torch.uint8)
     if shards.shape[1] != gmap.k:
         raise ValueError(f"rs_bitmatmul: tables are for k={gmap.k}, shards "
                          f"are {tuple(shards.shape)}")
-    if shards.device.type == "cpu":
-        return rs_bitmatmul_plain(shards, gmap)
-    _check_cuda(shards, "rs_bitmatmul", gmap.lut.device)
-    if (gmap.rows > _B5_MAX_ROWS
-            or gmap.lut.numel() * 4 > _B5_MAX_TABLE_BYTES):
-        raise ValueError(f"rs_bitmatmul: the kernel takes <= {_B5_MAX_ROWS} "
-                         f"output shards and <= {_B5_MAX_TABLE_BYTES} bytes "
-                         f"of tables, got {gmap.rows} and {gmap.lut.numel() * 4}")
     n, k, L = shards.shape
     out = torch.empty(n, gmap.rows, L, dtype=torch.uint8, device=shards.device)
     if n == 0 or L == 0:
         return out
-    from t3fs_torch.ops._build import check, library
+    cpu = shards.device.type == "cpu"
+    if not cpu:
+        _check_cuda(shards, "rs_bitmatmul", gmap.bitmatrix_t.device)
+        from t3fs_torch.ops._build import check, library
 
-    lib = library("rs_bitmatmul")
-    check(lib, lib.t3fs_rs_bitmatmul(
-        shards.data_ptr(), out.data_ptr(), gmap.lut.data_ptr(), n, k,
-        gmap.rows, L, _stream(shards)), "rs_bitmatmul")
-    launches["rs_bitmatmul"] += 1
+        lib = library("rs_bitmatmul")
+    for t in gmap.tiles:
+        if cpu:
+            part = _bitplanes(shards[:, t.i0:t.i0 + t.ki], t.bitmatrix_t)
+            dst = out[:, t.j0:t.j0 + t.rows]
+            if t.i0:
+                dst ^= part
+            else:
+                dst.copy_(part)
+            continue
+        check(lib, lib.t3fs_rs_bitmatmul(
+            shards.data_ptr(), out.data_ptr(), t.lut.data_ptr(), n, k, t.i0,
+            t.ki, gmap.rows, t.j0, t.rows, L, int(t.i0 > 0), _stream(shards)),
+            "rs_bitmatmul")
+        launches["rs_bitmatmul"] += 1
     return out
 
 

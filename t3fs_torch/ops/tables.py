@@ -32,8 +32,10 @@ rows) is built by `build_decode_arrays` / `build_encode_arrays`:
                               465-468): kernel B5 and its plain version
   rs_poly      () int64       RSCode.gf.poly
 
-and loaded by `load_gfmap_tables`.  A repair program's `planes` (the port's
-repair_program, or the JAX package's) load with `load_repair_tables`.
+and loaded by `load_gfmap_tables`, which cuts the map into B5's launches
+(`b5_tile_plan`).  A repair program's `planes` (the port's repair_program,
+or the JAX package's) load with `load_repair_tables`, which cuts the row
+into B4's launches.
 """
 
 from __future__ import annotations
@@ -91,38 +93,43 @@ def _pack_columns(M: np.ndarray) -> np.ndarray:
     return cols.astype(np.uint32).view(np.int32)
 
 
-def _nibble_table(weights: np.ndarray) -> np.ndarray:
-    """The CRC word kernel's lookup table, (8, 16, 4, 32) int32 flattened.
+def _crc_mma_matrix(weights: np.ndarray) -> np.ndarray:
+    """B1's operand A, the (32, 128) u32 CRC matrix flattened as int32: bit i
+    of word w of row r is the weight of segment word w's bit i (message bit
+    32w + i, little-endian) in CRC bit r, i.e. weights[i][w][r].  The tensor
+    cores pair bit i of an A register with bit i of a B register
+    (b1_probe.py), so the rows pair with the segment words as they lie in
+    memory."""
+    rows = _pack_columns(weights.transpose(1, 0, 2)).T          # [r, w]
+    return np.ascontiguousarray(rows).reshape(-1)
 
-    Entry [j][v][w % 4][w // 4] is the XOR of the packed CRC columns of the
-    set bits of nibble value v at bits 4j..4j+3 of word w.  The layout puts
-    the word's lane (w // 4, the lane that loads words 4l..4l+3 as one
-    16-byte vector) innermost, so a warp's 32 lookups hit 32 banks."""
-    cols = _pack_columns(weights.transpose(1, 2, 0)).view(np.uint32)  # [w, bit]
-    table = np.zeros((8, 16, 4, 32), dtype=np.uint32)
-    for j in range(8):
-        for v in range(16):
-            acc = np.zeros(SEG_WORDS, dtype=np.uint32)
-            for t in range(4):
-                if (v >> t) & 1:
-                    acc ^= cols[:, 4 * j + t]
-            table[j, v] = acc.reshape(32, 4).T                   # [w%4][w//4]
-    return table.reshape(-1).view(np.int32)
+
+def _byte_tables(M: np.ndarray) -> np.ndarray:
+    """A (32, 32) GF(2) matrix as four byte lookups, (4, 256) int32
+    flattened: entry [j][v] is M . (v << 8j) packed, so M . x is the XOR of
+    the entries of x's four bytes."""
+    cols = _pack_columns(M).view(np.uint32)
+    v = np.arange(256)
+    out = np.zeros((4, 256), dtype=np.uint32)
+    for j in range(4):
+        for b in range(8):
+            out[j, ((v >> b) & 1) == 1] ^= cols[8 * j + b]
+    return out.reshape(-1).view(np.int32)
 
 
 @dataclass(frozen=True)
 class CodecTables:
     """Device tensors of one codec configuration (chunk of `nseg` segments,
     RS(rs_k + rs_m)).  Plain versions read the matrix forms; the kernels
-    read the packed-column forms."""
+    read the packed forms."""
 
     device: torch.device
     nseg: int
     crc_word_weights: torch.Tensor   # (32, 128, 32) f32: plain B1
-    crc_nibble_table: torch.Tensor   # (16384,) int32: kernel B1
+    crc_mma_a: torch.Tensor          # (4096,) int32 _crc_mma_matrix: kernel B1
     combine_stack: torch.Tensor      # (S, 32, 32) f32: plain combine
     combine_cols: torch.Tensor       # (S, 32) int32: kernel combine
-    seg_shift_cols: torch.Tensor     # (32,) int32: kernel combine (Horner step)
+    seg_shift_bytes: torch.Tensor    # (1024,) int32: kernel combine (Horner step)
     chunk_affine: int                # uint32 affine of an S*512-byte chunk
     rs_k: int
     rs_m: int
@@ -148,10 +155,10 @@ def load_codec_tables(arrays: dict[str, np.ndarray],
         device=dev,
         nseg=stack.shape[0],
         crc_word_weights=t(weights),
-        crc_nibble_table=t(_nibble_table(weights)),
+        crc_mma_a=t(_crc_mma_matrix(weights)),
         combine_stack=t(stack.astype(np.float32)),
         combine_cols=t(_pack_columns(stack)),
-        seg_shift_cols=t(_pack_columns(np.asarray(arrays["seg_shift"]))),
+        seg_shift_bytes=t(_byte_tables(np.asarray(arrays["seg_shift"]))),
         chunk_affine=int(np.asarray(arrays["chunk_affine"])),
         rs_k=rs_k,
         rs_m=G.shape[0] - rs_k,
@@ -314,18 +321,57 @@ def bitmatmul_lut(bitmatrix_t: np.ndarray) -> np.ndarray:
     return lut.reshape(-1).view(np.int32)
 
 
+# What one launch of B5 (csrc/rs_bitmatmul.cu) takes: at most 8 output
+# shards, and tables of at most the opt-in shared memory of a block on sm_90
+# (227 KiB).  A larger map runs as several launches, one a tile.
+B5_MAX_ROWS = 8
+B5_MAX_TABLE_BYTES = 227 * 1024
+
+
+def b5_tile_plan(k: int, rows: int) -> list[tuple[int, int, int, int]]:
+    """The (i0, ki, j0, wj) tiles of a map of k input shards to `rows`
+    output shards: output rows in groups of <= B5_MAX_ROWS and, per row
+    group, input shards in as few equal groups as fit the table limit.
+    Each tile adds input shards i0..i0+ki-1's share to output rows
+    j0..j0+wj-1; a row group's first tile writes them, the others XOR in."""
+    plan = []
+    for j0 in range(0, rows, B5_MAX_ROWS):
+        wj = min(B5_MAX_ROWS, rows - j0)
+        kmax = B5_MAX_TABLE_BYTES // (-(-wj // 4) * 256 * 4)
+        groups = -(-k // kmax)
+        i0 = 0
+        for gi in range(groups):
+            ki = k // groups + (gi < k % groups)
+            plan.append((i0, ki, j0, wj))
+            i0 += ki
+    return plan
+
+
+@dataclass(frozen=True)
+class B5Tile:
+    """One launch of B5: input shards i0..i0+ki-1 to output rows
+    j0..j0+rows-1 (accumulating unless i0 == 0)."""
+
+    i0: int
+    ki: int
+    j0: int
+    rows: int
+    bitmatrix_t: torch.Tensor        # (8 rows, 8 ki) f32 plane-major block: plain tile
+    lut: torch.Tensor                # (ceil(rows/4) * ki * 256,) int32: kernel tile
+
+
 @dataclass(frozen=True)
 class GFMapTables:
     """Constants of one GF(2^8)-linear map of k input shards to `rows`
-    output shards.  B3 reads the coefficients, B5 the lookup tables and
-    B5's plain version the bit matrix."""
+    output shards.  B3 reads the coefficients, B5 its tiles (b5_tile_plan)
+    and B5's plain version the whole bit matrix."""
 
     k: int
     rows: int
     coeff_rows: tuple[tuple[int, ...], ...]  # (rows, k) GF(2^8): B3
     poly_low: int                    # xtimes reduction byte (0x1D)
     bitmatrix_t: torch.Tensor        # (8 rows, 8k) f32 plane-major: plain B5
-    lut: torch.Tensor                # (ceil(rows/4) * k * 256,) int32: kernel B5
+    tiles: tuple[B5Tile, ...]        # B5's launches
 
 
 def load_gfmap_tables(arrays: dict[str, np.ndarray],
@@ -339,11 +385,19 @@ def load_gfmap_tables(arrays: dict[str, np.ndarray],
     if Mt.shape != (8 * rows, 8 * k):
         raise ValueError(f"bitmatrix_t {Mt.shape} does not match gfmatrix "
                          f"{G.shape}")
+    M = Mt.reshape(8, rows, 8, k)
+    tiles = []
+    for i0, ki, j0, wj in b5_tile_plan(k, rows):
+        block = M[:, j0:j0 + wj, :, i0:i0 + ki].reshape(8 * wj, 8 * ki)
+        tiles.append(B5Tile(
+            i0=i0, ki=ki, j0=j0, rows=wj,
+            bitmatrix_t=torch.from_numpy(block.astype(np.float32)).to(dev),
+            lut=torch.from_numpy(bitmatmul_lut(block)).to(dev)))
     return GFMapTables(
         k=k, rows=rows, coeff_rows=tuple(tuple(int(c) for c in row) for row in G),
         poly_low=int(np.asarray(arrays["rs_poly"])) & 0xFF,
         bitmatrix_t=torch.from_numpy(Mt.astype(np.float32)).to(dev),
-        lut=torch.from_numpy(bitmatmul_lut(Mt)).to(dev),
+        tiles=tuple(tiles),
     )
 
 
@@ -359,15 +413,30 @@ def encode_map_tables(rs: RSCode | None = None,
     return load_gfmap_tables(build_encode_arrays(rs), device)
 
 
+# What one launch of B4 (csrc/repair_words.cu) takes: at most 32 helpers
+# (one bitmask word a plane).  A longer row runs as one launch a group.
+B4_MAX_HELPERS = 32
+
+
+@dataclass(frozen=True)
+class RepairGroup:
+    """One launch of B4: helpers h0..h0+count-1 (bit j of masks[b]: helper
+    h0+j's coefficient has bit b set; masks[-1], the top plane, nonempty)."""
+
+    h0: int
+    count: int
+    masks: tuple[int, ...]
+
+
 @dataclass(frozen=True)
 class RepairTables:
-    """One scheduled repair row: plain B4 reads `planes`, kernel B4 the
-    helper bitmask of each plane (bit h of plane_masks[b]: helper h's
-    coefficient has bit b set)."""
+    """One scheduled repair row: plain B4 reads `planes`; the kernel runs
+    `groups`, the row split into groups of <= B4_MAX_HELPERS helpers (the
+    row is linear in its helpers, so the groups' results XOR together)."""
 
     num_helpers: int
     planes: tuple[tuple[int, ...], ...]
-    plane_masks: tuple[int, ...]
+    groups: tuple[RepairGroup, ...]
     poly_low: int
 
 
@@ -377,13 +446,20 @@ def load_repair_tables(num_helpers: int, planes, poly: int) -> RepairTables:
     planes = tuple(tuple(int(i) for i in p) for p in planes)
     if not planes or not planes[-1]:
         raise ValueError(f"planes {planes}: the top plane must be nonempty")
-    masks = []
-    for p in planes:
-        if any(not 0 <= i < num_helpers for i in p):
-            raise ValueError(f"plane {p} names a helper outside 0..{num_helpers - 1}")
-        masks.append(sum(1 << i for i in set(p)))
+    if any(not 0 <= i < num_helpers for p in planes for i in p):
+        raise ValueError(f"planes {planes} name a helper outside "
+                         f"0..{num_helpers - 1}")
+    groups = []
+    for h0 in range(0, num_helpers, B4_MAX_HELPERS):
+        count = min(B4_MAX_HELPERS, num_helpers - h0)
+        masks = [sum(1 << (i - h0) for i in set(p) if h0 <= i < h0 + count)
+                 for p in planes]
+        while masks and not masks[-1]:
+            masks.pop()
+        if masks:                    # a group whose helpers all have 0 drops out
+            groups.append(RepairGroup(h0=h0, count=count, masks=tuple(masks)))
     return RepairTables(num_helpers=num_helpers, planes=planes,
-                        plane_masks=tuple(masks), poly_low=int(poly) & 0xFF)
+                        groups=tuple(groups), poly_low=int(poly) & 0xFF)
 
 
 def repair_tables(program: RepairProgram,

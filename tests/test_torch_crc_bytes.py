@@ -18,12 +18,13 @@ from t3fs.ops import jax_codec
 from t3fs.ops import pallas_codec as pc
 from t3fs.ops.crc32c import crc32c_ref, default_matrices as ref_matrices
 from t3fs.ops.rs import default_rs as ref_default_rs
+from t3fs_torch.benchmarks import b1_probe
 from t3fs_torch.ops import cuda_codec as cc
 from t3fs_torch.ops.blocks import pick_block
 from t3fs_torch.ops.repair_program import eval_program_np, single_row_program
 from t3fs_torch.ops.rs import default_rs
 from t3fs_torch.ops.tables import (
-    build_crc_bytes_arrays, codec_tables, crc_bytes_tables, crc_nseg,
+    build_crc_bytes_arrays, crc_bytes_tables, crc_nseg,
     load_crc_bytes_tables)
 
 rng = np.random.default_rng(41)
@@ -163,7 +164,7 @@ def test_load_crc_bytes_tables_from_jax_arrays(nseg):
     perm = pc._plane_major_perm(512)
     assert np.array_equal(a.seg_matrix_pm.numpy(),
                           ref_arrays["segment_matrix"][perm].astype(np.float32))
-    assert torch.equal(a.nibble_table, codec_tables(nseg, device="cpu").crc_nibble_table)
+    assert np.array_equal(a.nibble_table.numpy(), b1_probe.nibble_table())
     rows = torch.from_numpy(_bytes(3, nseg * 512 - 7))
     assert torch.equal(cc.crc_bytes_raw(rows, a), cc.crc_bytes_raw(rows, b))
 

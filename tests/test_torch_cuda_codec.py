@@ -1,8 +1,9 @@
 """The write-path kernels' plain versions (t3fs_torch.ops.cuda_codec on CPU
 tensors) against the JAX package's Pallas kernels in interpret mode, the
-codec tables against the JAX package's arrays, and a numpy emulation of the
-CUDA CRC kernel's table lookups and chunk fold (the kernel itself runs only
-on a GPU; the `cuda` tests hold it against the plain versions there).
+codec tables against the JAX package's arrays, and a numpy model of the
+CUDA CRC kernel: its tensor-core product by PTX's fragment layout, its
+epilogue and its chunk fold (the kernel itself runs only on a GPU; the
+`cuda` tests hold it against the plain versions there).
 
 Shapes follow tests/test_pallas_codec.py.  Every comparison is bit-exact."""
 
@@ -15,6 +16,7 @@ from t3fs.ops import pallas_codec as pc
 from t3fs.ops.crc32c import crc32c_ref, default_matrices as ref_matrices
 from t3fs.ops.jax_codec import pack_bits_u32 as jax_pack_u32
 from t3fs.ops.rs import default_rs as ref_default_rs
+from t3fs_torch.benchmarks import b1_probe
 from t3fs_torch.ops import cuda_codec as cc
 from t3fs_torch.ops.blocks import pick_block
 from t3fs_torch.ops.rs import default_rs
@@ -105,8 +107,8 @@ def test_load_codec_tables_from_jax_arrays(nseg):
         assert np.array_equal(np.asarray(ref_arrays[key]), np.asarray(own[key])), key
     a = load_codec_tables(ref_arrays, device="cpu")
     b = load_codec_tables(own, device="cpu")
-    for f in ("crc_word_weights", "crc_nibble_table", "combine_stack",
-              "combine_cols", "seg_shift_cols", "rs_parity_bitmatrix"):
+    for f in ("crc_word_weights", "crc_mma_a", "combine_stack",
+              "combine_cols", "seg_shift_bytes", "rs_parity_bitmatrix"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert (a.chunk_affine, a.rs_poly_low, a.rs_code_id, a.rs_raid6) == \
         (b.chunk_affine, b.rs_poly_low, "raid6-g2-11d", True)
@@ -116,44 +118,153 @@ def test_load_codec_tables_from_jax_arrays(nseg):
     assert torch.equal(cc.rs_raid6_words(data, a), cc.rs_raid6_words(data, b))
 
 
+# --- numpy model of crc_words.cu (B1 as a binary tensor-core product) -------
+
+_LANE = np.arange(32)
+_G, _T = _LANE // 4, _LANE % 4
+
+
+def _k_word(ks, t):
+    """The segment word k-step ks of lane t pairs with its b0 (b1: +1)."""
+    return 16 * (ks >> 1) + 4 * t + 2 * (ks & 1)
+
+
+def _mma_b1(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """mma.sync m16n8k256 b1 and.popc on the lanes' registers, by PTX's
+    fragment layout with bit i of a register as element i (b1_probe.py):
+    a (..., 32, 4), b (..., 32, 2) u32 -> d (..., 32, 4) with d[lane, r] =
+    D[g + 8 (r >> 1), 2 t + (r & 1)]."""
+    r = np.arange(4)
+    tp, h = np.arange(4), np.arange(2)
+    a_lane = 4 * _G[:, None, None, None] + tp[None, None, :, None]      # (32,1,4,1)
+    a_reg = (r[None, :, None, None] >> 1) + 2 * h[None, None, None, :]  # (1,4,1,2)
+    col = 2 * _T[:, None] + (r[None, :] & 1)                            # (32,4)
+    b_lane = 4 * col[:, :, None, None] + tp[None, None, :, None]        # (32,4,4,1)
+    prod = a[..., a_lane, a_reg] & b[..., b_lane, h[None, None, None, :]]
+    return np.bitwise_count(prod).sum(axis=(-1, -2)).astype(np.int64)
+
+
+def _a_fragments(tables) -> np.ndarray:
+    """(2, 16, 32, 4) u32: the kernel's shared A, [m-tile][k-step][lane][r]."""
+    A = tables.crc_mma_a.numpy().view(np.uint32).reshape(32, 128)
+    mt, ks, lane, r = np.meshgrid(np.arange(2), np.arange(16), _LANE, np.arange(4),
+                                  indexing="ij")
+    row = 16 * mt + lane // 4 + 8 * (r & 1)
+    return A[row, _k_word(ks, lane % 4) + (r >> 1)]
+
+
+def _emulate_unit_crcs(frags: np.ndarray, segs: np.ndarray) -> np.ndarray:
+    """unit_crcs: (U, 16, 128) u32 units (zeros past their columns) ->
+    (U, 16) u32 segment CRCs, as the lanes hold them after the epilogue."""
+    U = segs.shape[0]
+    d = np.zeros((U, 2, 2, 32, 4), dtype=np.int64)          # [u, mt, nt, lane, c]
+    for ks in range(16):
+        for nt in range(2):
+            # lane (g, t) loads uint4 4q + t of segment 8 nt + g: words
+            # 16q + 4t .. +3; k-step ks takes components 2(ks % 2), +1
+            w0 = _k_word(ks, _T)
+            b = np.stack([segs[:, 8 * nt + _G, w0], segs[:, 8 * nt + _G, w0 + 1]], -1)
+            for mt in range(2):
+                d[:, mt, nt] += _mma_b1(frags[mt, ks], b)
+    out = np.zeros((U, 16), dtype=np.uint32)
+    for nt in range(2):
+        for p in range(2):
+            x = (((d[:, 0, nt, :, p] & 1) << _G) | ((d[:, 0, nt, :, p + 2] & 1) << (_G + 8))
+                 | ((d[:, 1, nt, :, p] & 1) << (_G + 16))
+                 | ((d[:, 1, nt, :, p + 2] & 1) << (_G + 24)))
+            for t in range(4):                               # OR the 8 lanes of t
+                out[:, 8 * nt + 2 * t + p] = np.bitwise_or.reduce(x[:, _T == t], axis=1)
+    return out
+
+
+def _units(words: np.ndarray, unit_segs: int) -> tuple[np.ndarray, list[int]]:
+    """(R, 128) segments -> (U, 16, 128) units of unit_segs, zero-padded."""
+    R = len(words)
+    U = -(-R // unit_segs)
+    units = np.zeros((U, 16, 128), dtype=np.uint32)
+    ncols = []
+    for u in range(U):
+        part = words[u * unit_segs:(u + 1) * unit_segs]
+        units[u, :len(part)] = part
+        ncols.append(len(part))
+    return units, ncols
+
+
+def _emulate_crc_seg_words(rows: np.ndarray, tables) -> list[int]:
+    """t3fs_crc_seg_words: units of 16 rows, the last one ragged."""
+    units, ncols = _units(rows, 16)
+    crcs = _emulate_unit_crcs(_a_fragments(tables), units)
+    return [int(c) for u, n in enumerate(ncols) for c in crcs[u, :n]]
+
+
 def _emulate_crc_kernel(words: np.ndarray, tables, spw: int) -> list[int]:
-    """numpy model of crc_words.cu: per-segment nibble-table lookups in the
-    kernel's [nibble][value][w % 4][w // 4] layout, the Horner fold over a
-    run of spw segments with Mb^512, then P[last] of the run."""
-    T = tables.crc_nibble_table.numpy().view(np.uint32)
-    shift = tables.seg_shift_cols.numpy().view(np.uint32)
+    """t3fs_crc32c_words_raw: units are runs of spw segments; the Horner
+    fold acc = Mb^512 . acc ^ seg with Mb^512 as four byte lookups, then
+    P[last] of the run; the runs of a chunk XOR together."""
+    shift = tables.seg_shift_bytes.numpy().view(np.uint32).reshape(4, 256)
     comb = tables.combine_cols.numpy().view(np.uint32)
-
-    def matvec(cols, x):
-        y = 0
-        for i in range(32):
-            if (x >> i) & 1:
-                y ^= int(cols[i])
-        return y
-
-    def seg_crc(seg):
-        x = 0
-        for w in range(128):
-            lane, i = w // 4, w % 4
-            for j in range(8):
-                nib = (int(seg[w]) >> (4 * j)) & 15
-                x ^= int(T[((j * 16 + nib) * 4 + i) * 32 + lane])
-        return x
-
     S = tables.nseg
+    units, _ = _units(words.reshape(-1, 128), spw)
+    crcs = _emulate_unit_crcs(_a_fragments(tables), units)
     out = []
-    for chunk in words.reshape(len(words), S, 128):
+    for chunk in range(len(words)):
         total = 0
-        for r0 in range(0, S, spw):
+        for r in range(S // spw):
             acc = 0
-            for s in range(r0, r0 + spw):
-                acc = matvec(shift, acc) ^ seg_crc(chunk[s])
-            total ^= matvec(comb[r0 + spw - 1], acc)
+            for c in range(spw):
+                acc = (int(shift[0][acc & 255]) ^ int(shift[1][(acc >> 8) & 255])
+                       ^ int(shift[2][(acc >> 16) & 255]) ^ int(shift[3][acc >> 24])
+                       ^ int(crcs[chunk * (S // spw) + r, c]))
+            y = 0
+            for i in range(32):
+                if (acc >> i) & 1:
+                    y ^= int(comb[r * spw + spw - 1][i])
+            total ^= y
         out.append(total)
     return out
 
 
-@pytest.mark.parametrize("nseg,spw", [(4, 1), (4, 2), (4, pick_block(4, 16)), (6, 3)])
+def test_mma_model_matches_probe_layout():
+    """The model's mma equals b1_probe's host reading of PTX's layout, the
+    one the card confirmed, on random registers."""
+    for _ in range(4):
+        a = rng.integers(0, 2**32, (32, 4), dtype=np.uint32)
+        b = rng.integers(0, 2**32, (32, 2), dtype=np.uint32)
+        assert np.array_equal(_mma_b1(a, b), b1_probe._frag_host(a, b))
+
+
+def test_crc_mma_matrix_and_k_order():
+    """Operand A is the JAX package's CRC weights packed row-wise, and the
+    k-steps pair every segment word with its row word exactly once."""
+    A = codec_tables(1, device="cpu").crc_mma_a.numpy().view(np.uint32).reshape(32, 128)
+    W = pc._crc_word_weights()                                   # (32 bits, 128, 32)
+    bits = (A.T[None] >> np.arange(32, dtype=np.uint32)[:, None, None]) & 1
+    assert np.array_equal(bits.astype(np.float32), W)
+    assert sorted(_k_word(ks, t) + h for ks in range(16) for t in range(4)
+                  for h in range(2)) == list(range(128))
+
+
+def test_crc_seg_kernel_model_matches_pallas():
+    """The kernel model on random segments (a ragged last unit) equals the
+    JAX Pallas kernel in interpret mode."""
+    rows = rng.integers(0, 2**32, (40, 128), dtype=np.uint32)
+    ref = pc.make_crc_seg_words_pallas(block_r=8, interpret=True)(jnp.asarray(rows))
+    want = [int(c) for c in np.asarray(jax_pack_u32(ref)).view(np.uint32)]
+    assert _emulate_crc_seg_words(rows, codec_tables(1, device="cpu")) == want
+
+
+def test_crc_seg_kernel_model_on_every_one_hot_segment():
+    """All 4096 one-hot segments: the model gives each bit's CRC column."""
+    rows = np.zeros((4096, 128), dtype=np.uint32)
+    rows[np.arange(4096), np.arange(4096) // 32] = np.uint32(1) << (np.arange(4096) % 32
+                                                                  ).astype(np.uint32)
+    tables = codec_tables(1, device="cpu")
+    want = [int(c) for c in _u32(cc.crc_seg_words_plain(_t(rows), tables))]
+    assert _emulate_crc_seg_words(rows, tables) == want
+
+
+@pytest.mark.parametrize("nseg,spw", [(4, 1), (4, 2), (4, pick_block(4, 16)), (6, 3),
+                                      (1, 1), (6, 6), (64, 8), (64, pick_block(64, 16))])
 def test_crc_kernel_table_layout_and_fold(nseg, spw):
     """The CUDA kernel's tables and its fold, emulated on the host, give the
     plain version's raw CRCs for every run length it may pick."""

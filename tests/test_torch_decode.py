@@ -156,7 +156,9 @@ def test_decode_tables_from_jax_arrays(k, m, lost):
         assert np.array_equal(np.asarray(ref[key]), np.asarray(own[key])), key
     a, b = load_gfmap_tables(ref, device="cpu"), load_gfmap_tables(own, device="cpu")
     assert (a.coeff_rows, a.poly_low) == (b.coeff_rows, 0x1D)
-    assert torch.equal(a.lut, b.lut) and torch.equal(a.bitmatrix_t, b.bitmatrix_t)
+    assert len(a.tiles) == len(b.tiles) == 1
+    assert torch.equal(a.tiles[0].lut, b.tiles[0].lut)
+    assert torch.equal(a.bitmatrix_t, b.bitmatrix_t)
     shards = torch.from_numpy(rng.integers(0, 256, (2, k, 96), dtype=np.uint8))
     assert torch.equal(cc.rs_bitmatmul(shards, a), cc.rs_bitmatmul(shards, b))
 
@@ -174,17 +176,25 @@ def test_encode_tables_from_jax_arrays(k, m):
 
 
 def _emulate_bitmatmul_kernel(shards: np.ndarray, gmap) -> np.ndarray:
-    """numpy model of rs_bitmatmul.cu: per input shard i and output group g,
-    one u32 table entry per input byte, XORed into the byte position's
-    accumulator; output shard j is byte j % 4 of group j // 4's."""
-    lut = gmap.lut.numpy().view(np.uint32).reshape(-1, gmap.k, 256)
+    """numpy model of rs_bitmatmul.cu, one launch a tile: per input shard i
+    of the tile and output group g, one u32 table entry per input byte,
+    XORed into the byte position's accumulator; output shard j is byte
+    j % 4 of group j // 4's; a tile past input 0 XORs into its rows."""
     n, k, L = shards.shape
-    acc = np.zeros((lut.shape[0], n, L), dtype=np.uint32)
-    for g in range(lut.shape[0]):
-        for i in range(k):
-            acc[g] ^= lut[g, i][shards[:, i]]
-    return np.stack([(acc[j // 4] >> np.uint32(8 * (j % 4))).astype(np.uint8)
-                     for j in range(gmap.rows)], axis=1)
+    out = np.zeros((n, gmap.rows, L), dtype=np.uint8)
+    for t in gmap.tiles:
+        lut = t.lut.numpy().view(np.uint32).reshape(-1, t.ki, 256)
+        acc = np.zeros((lut.shape[0], n, L), dtype=np.uint32)
+        for g in range(lut.shape[0]):
+            for i in range(t.ki):
+                acc[g] ^= lut[g, i][shards[:, t.i0 + i]]
+        part = np.stack([(acc[j // 4] >> np.uint32(8 * (j % 4))).astype(np.uint8)
+                         for j in range(t.rows)], axis=1)
+        if t.i0:
+            out[:, t.j0:t.j0 + t.rows] ^= part
+        else:
+            out[:, t.j0:t.j0 + t.rows] = part
+    return out
 
 
 @pytest.mark.parametrize("k,m,lost", [(4, 3, (0, 1, 2)), (6, 3, (1, 4, 7)),
@@ -204,7 +214,7 @@ def test_bitmatmul_tables_pack_eight_outputs_in_two_groups():
     """Eight output rows: two table groups; the emulation still agrees."""
     arrays = build_encode_arrays(default_rs(4, 8))
     gmap = load_gfmap_tables(arrays, device="cpu")
-    assert gmap.lut.numel() == 2 * 4 * 256
+    assert len(gmap.tiles) == 1 and gmap.tiles[0].lut.numel() == 2 * 4 * 256
     shards = rng.integers(0, 256, (1, 4, 33), dtype=np.uint8)
     assert np.array_equal(_emulate_bitmatmul_kernel(shards, gmap),
                           cc.rs_bitmatmul(torch.from_numpy(shards), gmap).numpy())

@@ -138,7 +138,8 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
 
 @pytest.mark.parametrize("cmd,key", [
     (["-m", "t3fs_torch.bench"], "metric"),
-    (["-m", "t3fs_torch.benchmarks.ec_recovery_bench", "--decode-ab"], "decode_metric")])
+    (["-m", "t3fs_torch.benchmarks.ec_recovery_bench", "--decode-ab"], "decode_metric"),
+    (["-m", "t3fs_torch.benchmarks.b1_probe"], "card")])
 def test_benches_fail_without_gpu_with_an_error_line(cmd, key):
     """Without a GPU a bench prints its result line with an error and exits
     non-zero; it never measures the CPU."""

@@ -114,25 +114,30 @@ def test_repair_tables_from_jax_program():
     for mine, ref in _programs(rs, ref_rs, 8, 2):
         a = load_repair_tables(ref.num_helpers, ref.planes, ref_rs.gf.poly)
         assert a == repair_tables(mine, rs)
-        assert a.plane_masks[-1] and len(a.plane_masks) == ref.xtimes_ops + 1
+        assert len(a.groups) == 1 and a.groups[0].masks[-1]
+        assert len(a.groups[0].masks) == ref.xtimes_ops + 1
 
 
 def _emulate_repair_kernel(words: np.ndarray, rep) -> np.ndarray:
-    """numpy model of repair_words.cu: each helper word read once and XORed
-    into the plane sums its bits select, then Horner from the top plane."""
+    """numpy model of repair_words.cu, one launch a helper group: each helper
+    word read once and XORed into the plane sums its bits select, then
+    Horner from the group's top plane; groups after the first XOR in."""
     def xtimes(x):
         return (((x << np.uint32(1)) & np.uint32(0xFEFEFEFE))
                 ^ (((x >> np.uint32(7)) & np.uint32(0x01010101)) * np.uint32(rep.poly_low)))
 
-    S = np.zeros((8,) + words[:, 0].shape, dtype=np.uint32)
-    for j in range(words.shape[1]):
-        for b in range(8):
-            if b < len(rep.plane_masks) and (rep.plane_masks[b] >> j) & 1:
-                S[b] ^= words[:, j]
-    acc = np.zeros_like(S[0])
-    for b in range(len(rep.plane_masks) - 1, -1, -1):
-        acc = xtimes(acc) ^ S[b]
-    return acc
+    out = np.zeros_like(words[:, 0])
+    for grp in rep.groups:
+        S = np.zeros((8,) + words[:, 0].shape, dtype=np.uint32)
+        for j in range(grp.count):
+            for b in range(len(grp.masks)):
+                if (grp.masks[b] >> j) & 1:
+                    S[b] ^= words[:, grp.h0 + j]
+        acc = np.zeros_like(S[0])
+        for b in range(len(grp.masks) - 1, -1, -1):
+            acc = xtimes(acc) ^ S[b]
+        out ^= acc
+    return out
 
 
 def test_repair_kernel_planes_emulated():
