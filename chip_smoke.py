@@ -37,9 +37,10 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
  10  CUDA-event times of B3, B4, B5 and the fused decode and repair steps
      beside their bounds
  11  B6 (CRC bytes) against its plain version: random segments, 64 x 4 MiB
-     rows and 64 x (4 MiB - 5) rows (unaligned), odd lengths against
-     crc32c_ref; the byte encode step (B5 + B6) and the byte decode step
-     (B5 + B6) on RS(6+3) at 12 x 1 MiB against plain
+     rows, 64 x (4 MiB - 5) rows (unaligned) and 64 x 1 000 000-byte rows
+     (a ragged first run), rows at every base offset 0..15, odd lengths
+     against crc32c_ref; the byte encode step (B5 + B6) and the byte decode
+     step (B5 + B6) on RS(6+3) at 12 x 1 MiB against plain
  12  the byte-path EC routes: 24 concurrent RS(6+3) encode_verified at
      1 MiB cells (B5 + B6), 12 RS(6+3) reconstruct_verified losing 3
      shards (B5 + B6), 12 RAID-6 encode_verified at 1 000 000 bytes (B2 +
@@ -57,12 +58,13 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      TorchECCodec calls at RAID-6 k = 40 and k = 254, RS(12+12) and RS(28+8)
      (encode_verified, reconstruct and reconstruct_verified of one and two
      losses, a 40-helper repair), every parity, rebuilt byte and CRC checked
- 14  CUDA-event times of B6 at both row shapes (beside B1's at the same
-     bytes), the byte encode step and the PM-MSR repair step
+ 14  CUDA-event times of B6 at its three row shapes (beside B1's at the
+     bytes of 64 x 4 MiB), the byte encode step and the PM-MSR repair step
  16  H1 (the bench's calibration copy) against its plain version at the
      bench's shape (12, 8, 256Ki words) and at ragged shapes, aligned and
      not; a CUDA-graph chained pass against the eager one; H1's time beside
-     its bound, its plain version and torch.add; then the headline bench
+     its bound, its plain version and torch.add, and H1 against torch.add in
+     interleaved CUDA-graph replays; then the headline bench
      (`t3fs_torch.bench --quick`: value > 0, the card named, H1 launched)
      and the decode bench (--decode-ab at 12 x 1 MiB stripes)
  15  the kernels line, the card line, then the ok line last
@@ -106,6 +108,11 @@ LOST63 = (1, 4, 7)
 LRC_GROUP = 3                  # ECLayout.local_group_size
 ODD_CHUNK = 1_000_000          # a chunk length that is not whole 512-byte segments
 MSR_LOSSES = ((0, 9), (4, 9))  # pm-msr two-loss reads: a data + a parity slot
+# B6's timed shapes (phase 14): whole segments, rows at all 16 misalignments,
+# and ODD_CHUNK (1954 segments: runs of 16 after a ragged first run of 2)
+B6_SHAPES = (("64 x 4 MiB", CHUNK_BYTES),
+             ("64 x (4 MiB - 5), rows unaligned", CHUNK_BYTES - 5),
+             ("64 x 1 000 000 B, ragged first run", ODD_CHUNK))
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -865,14 +872,28 @@ def phase_crc_bytes(dev: torch.device, g: torch.Generator) -> int:
     errs["seg"] = max_abs_err(cc.crc_seg_bytes(segs, t1), cc.crc_seg_bytes_plain(segs, t1))
     log(f"[11] crc_seg_bytes (4096, 512): max_abs_err={errs['seg']}")
     subset = sorted({0, CHUNKS // 3, CHUNKS - 1})
-    for L in (CHUNK_BYTES, CHUNK_BYTES - 5):
+    for L in (CHUNK_BYTES, CHUNK_BYTES - 5, ODD_CHUNK):
         rows = rand_bytes(g, dev, CHUNKS, L)
         tables = crc_bytes_tables(crc_nseg(L), dev)
         e = max_abs_err(cc.crc_bytes_raw(rows, tables)[subset],
                         cc.crc_bytes_raw_plain(rows[subset], tables))
         log(f"[11] crc_bytes_raw ({CHUNKS}, {L}): max_abs_err={e} on rows {subset} "
-            f"(row r starts at byte r * {L}{': unaligned' if L % 16 else ''})")
+            f"(row r starts at byte r * {L}{': unaligned' if L % 16 else ''}; "
+            f"runs a row: {cc.crc_bytes_runs(crc_nseg(L))}, the first of "
+            f"{crc_nseg(L) % 16 or 16} segments)")
         errs[L] = e
+    # rows at every offset 0..15 from a 16-byte boundary: views into one buffer
+    L = ODD_CHUNK
+    tables = crc_bytes_tables(crc_nseg(L), dev)
+    flat = rand_bytes(g, dev, 4 * L + 16)
+    e = 0
+    for off in range(16):
+        view = flat[off:off + 4 * L].view(4, L)
+        e = max(e, max_abs_err(cc.crc_bytes_raw(view, tables),
+                               cc.crc_bytes_raw_plain(view.contiguous(), tables)))
+    log(f"[11] crc_bytes_raw (4, {L}) views at base offsets 0..15: max_abs_err={e}")
+    errs["offsets"] = e
+    del flat, rows
     rng = np.random.default_rng(SEED + 11)
     for n in (1, 9, 513, (129 << 10) + 3):
         p = rng.bytes(n)
@@ -1233,8 +1254,7 @@ def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
     from t3fs_torch.ops.tables import crc_bytes_tables, crc_nseg, encode_map_tables
 
     out = {}
-    for label, L in (("64 x 4 MiB", CHUNK_BYTES),
-                     ("64 x (4 MiB - 5), rows unaligned", CHUNK_BYTES - 5)):
+    for label, L in B6_SHAPES:
         rows = rand_bytes(g, dev, CHUNKS, L)
         tables = crc_bytes_tables(crc_nseg(L), dev)
         out[f"crc_bytes {label}"] = {
@@ -1244,7 +1264,8 @@ def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
             "shape": f"({CHUNKS}, {L}) u8",
         }
         del rows
-    log(f"[14] B1 (crc_words) at the same bytes, from phase 5: {b1['ms'] * 1e3:.1f} us")
+    log(f"[14] B1 (crc_words) at the bytes of 64 x 4 MiB, from phase 5: "
+        f"{b1['ms'] * 1e3:.1f} us")
 
     rs63 = default_rs(K63, M63)
     shards = rand_bytes(g, dev, STRIPES, K63, SHARD_BYTES)
@@ -1261,6 +1282,12 @@ def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
         "plain_ms": time_ms(plain_step, 2, 1),
         "bound_ms": (K63 + M63) * SHARD_BYTES * STRIPES / HBM_BYTES_PER_S * 1e3,
         "shape": f"({STRIPES}, {K63}, {SHARD_BYTES}) u8",
+    }
+    # its launches called from the host can outlast the card's work: the
+    # same step replayed from a CUDA graph
+    out[f"byte encode step RS({K63}+{M63}), CUDA graph"] = {
+        **out[f"byte encode step RS({K63}+{M63})"],
+        **graph_kernel_times(lambda: step(shards)),
     }
     del shards
 
@@ -1311,6 +1338,25 @@ def run_captured(main, argv: list[str]) -> tuple[int, list[str]]:
     return rc, lines
 
 
+def h1_against_add(x: torch.Tensor) -> float:
+    """H1 against torch.add(x, 1) where the card's clocks cannot drift
+    between the two: 20 calls of each captured in a CUDA graph, replayed in
+    turns H1, add, H1, add, ...  Returns H1's median over torch.add's."""
+    from t3fs_torch.benchmarks import devbench as db
+
+    pair = db.interleaved_graph_samples(
+        {"H1": lambda: db.make_copy3d(x), "torch.add": lambda: torch.add(x, 1)},
+        20, 2 * REPEATS)
+    med = {name: v[len(v) // 2] for name, v in pair.items()}
+    ratio = med["H1"] / med["torch.add"]
+    log(f"[16] copy3d against torch.add, interleaved CUDA-graph replays of 20 "
+        f"calls, {2 * REPEATS} samples each: H1 {med['H1'] * 1e3:.2f} us (min "
+        f"{pair['H1'][0] * 1e3:.2f}, max {pair['H1'][-1] * 1e3:.2f}), torch.add "
+        f"{med['torch.add'] * 1e3:.2f} us (min {pair['torch.add'][0] * 1e3:.2f}, "
+        f"max {pair['torch.add'][-1] * 1e3:.2f}); H1 / torch.add {ratio:.4f}")
+    return ratio
+
+
 def phase_bench(dev: torch.device, g: torch.Generator) -> tuple[int, dict, dict]:
     from t3fs_torch import bench
     from t3fs_torch.benchmarks import devbench as db
@@ -1344,6 +1390,7 @@ def phase_bench(dev: torch.device, g: torch.Generator) -> tuple[int, dict, dict]
         f"{t['bound_ms'] / t['ms'] * 100:.1f}% of it; {2 * nbytes / t['ms'] / 1e6:.1f} "
         f"GB/s r+w); plain {t['plain_ms'] * 1e3:.1f} us; library call torch.add "
         f"{t['library_ms'] * 1e3:.1f} us")
+    h1_against_add(x)
 
     cc.reset_launches()
     db.reset_launches()

@@ -1,14 +1,23 @@
-"""The measurements that chose B1's design (t3fs_torch/csrc/crc_words.cu).
+"""The measurements that chose the tensor-core design of B1 and B6
+(t3fs_torch/csrc/crc_words.cu, crc_bytes.cu).
 
     python3 -m t3fs_torch.benchmarks.b1_probe [--csrc DIR [--caps 1,2,3]]
 
-1. With --csrc, B1's nibble-lookup design as built from the sources in DIR
-   (t3fs_torch/csrc/ of a checkout before the tensor-core design, e.g.
-   `git archive bc5a43a t3fs_torch/csrc`), through its C entry
-   t3fs_crc32c_words_raw, at 64 x 4 MiB (from HBM) and at 2 x 4 MiB (8 MiB,
-   which stays in the 50 MB L2 across calls).  With --caps, scratch copies
-   of DIR whose `kBlocksPerSm = N` line is set to each N are timed too (the
-   grid-size cap of that design in crc_common.cuh); DIR is not changed.
+1. With --csrc, B1's and B6's nibble-lookup designs as built from the
+   sources in DIR (t3fs_torch/csrc/ of a checkout before the tensor-core
+   designs: `git archive bc5a43a t3fs_torch/csrc` for B1's, `git archive
+   6ba1fb3 t3fs_torch/csrc` for B6's; unpack it under _archive/, which
+   .gitignore lists):
+   - B1 through its C entry t3fs_crc32c_words_raw, at 64 x 4 MiB (from HBM)
+     and at 2 x 4 MiB (8 MiB, which stays in the 50 MB L2 across calls).
+     With --caps, scratch copies of DIR whose `kBlocksPerSm = N` line is set
+     to each N are timed too (the grid-size cap of that design in
+     crc_common.cuh); DIR is not changed.  Skipped when DIR's crc_words.cu
+     is already the tensor-core design;
+   - B6 through its C entry t3fs_crc32c_bytes_raw against this checkout's
+     B6 (cuda_codec.crc_bytes_raw), in turns new, old, new, old, at 64 x
+     4 MiB (rows aligned) and 64 x (4 MiB - 5) (rows at all 16
+     misalignments).
 2. mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc: which bit of
    a .b32 register of A pairs with which bit of B (random fragments against
    the host under PTX's fragment layout, and one-hot A against one-hot B),
@@ -40,7 +49,8 @@ from t3fs_torch.ops import _build
 from t3fs_torch.ops.blocks import pick_block
 from t3fs_torch.ops.crc32c import default_matrices
 from t3fs_torch.ops.tables import (
-    SEG_BYTES, SEG_WORDS, _crc_word_weights, _pack_columns, codec_tables)
+    SEG_BYTES, SEG_WORDS, _crc_word_weights, _pack_columns, codec_tables,
+    crc_bytes_tables, crc_nseg)
 
 PROBE_DIR = _build.BUILD_DIR / "probe"
 HBM_BYTES_PER_S = 3.35e12
@@ -150,8 +160,18 @@ def _scratch_b1(csrc: Path, cap: int | None) -> tuple[Path, Path]:
     return d / "crc_words.cu", d / "libcrc_words.so"
 
 
+def _scratch_b6(csrc: Path) -> tuple[Path, Path]:
+    """A copy of csrc's B6 sources."""
+    d = PROBE_DIR / "b6_old"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for f in [csrc / "crc_bytes.cu", *csrc.glob("*.cuh")]:
+        (d / f.name).write_text(f.read_text())
+    return d / "crc_bytes.cu", d / "libcrc_bytes.so"
+
+
 def nibble_table() -> np.ndarray:
-    """The table of B1's nibble-lookup design, whose layout B6 shares: entry
+    """The table of the nibble-lookup designs of B1 and B6: entry
     [j][v][w % 4][w // 4] is the XOR of the packed CRC columns of the set
     bits of nibble value v at bits 4j..4j+3 of word w."""
     cols = _pack_columns(_crc_word_weights().transpose(1, 2, 0)).view(np.uint32)
@@ -188,12 +208,74 @@ def time_b1(lib: ctypes.CDLL, words: torch.Tensor, tables, table: torch.Tensor,
     return median_ms(call), graph_samples(call)[2], out
 
 
-def probe_b1(csrc: Path, caps: list[int]) -> dict:
+def time_old_b6(lib: ctypes.CDLL, rows: torch.Tensor, tables, table: torch.Tensor,
+                shift_cols: torch.Tensor) -> tuple[float, torch.Tensor]:
+    """Median ms of the lookup design's t3fs_crc32c_bytes_raw over `rows`
+    (runs of pick_block(nseg, 16) segments, as its wrapper chose), and its
+    output."""
+    fn = lib.t3fs_crc32c_bytes_raw
+    fn.argtypes = [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P]
+    n, L = rows.shape
+    spw = pick_block(tables.nseg, 16)
+    partial = torch.empty(n * (tables.nseg // spw), dtype=torch.int32, device=rows.device)
+    out = torch.empty(n, dtype=torch.int32, device=rows.device)
+
+    def call():
+        rc = fn(rows.data_ptr(), n, L, tables.nseg, spw, table.data_ptr(),
+                tables.combine_cols.data_ptr(), shift_cols.data_ptr(),
+                partial.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"t3fs_crc32c_bytes_raw: CUDA error {rc}")
+
+    return median_ms(call), out
+
+
+def probe_b6(lib_path: Path) -> dict:
+    """This checkout's B6 against the lookup B6 in `lib_path`, in turns new,
+    old, new, old, at 64 x 4 MiB and 64 x (4 MiB - 5)."""
+    from t3fs_torch.ops import cuda_codec as cc
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261017)
+    lib = ctypes.CDLL(str(lib_path))
+    table = torch.from_numpy(nibble_table()).to(dev)
+    shift_cols = torch.from_numpy(
+        _pack_columns(default_matrices().shift_matrix(SEG_BYTES))).to(dev)
+    res = {}
+    for label, L in (("64 x 4 MiB", 4 << 20), ("64 x (4 MiB - 5)", (4 << 20) - 5)):
+        rows = torch.randint(0, 256, (64, L), dtype=torch.uint8, device=dev, generator=g)
+        tables = crc_bytes_tables(crc_nseg(L), device=dev)
+        ref = cc.crc_bytes_raw_plain(rows[:2], tables)
+        times: dict[str, list[float]] = {"new": [], "old": []}
+        exact = True
+        for turn in ("new", "old", "new", "old"):
+            if turn == "new":
+                ms = median_ms(lambda: cc.crc_bytes_raw(rows, tables))
+                out = cc.crc_bytes_raw(rows, tables)
+            else:
+                ms, out = time_old_b6(lib, rows, tables, table, shift_cols)
+            torch.cuda.synchronize()
+            exact &= torch.equal(out[:2], ref)
+            times[turn].append(ms)
+        bound_us = rows.numel() / HBM_BYTES_PER_S * 1e6
+        res[label] = {"new_ms": times["new"], "old_ms": times["old"], "exact": exact,
+                      "bound_us": bound_us}
+        print(f"B6 {label} (bound {bound_us:.1f} us): new "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times['new'])} us, old "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in times['old'])} us (turns new, "
+              f"old, new, old); new / old {times['new'][0] / times['old'][0]:.3f}, "
+              f"{times['new'][1] / times['old'][1]:.3f}; exact against plain: {exact}",
+              flush=True)
+        del rows
+    return res
+
+
+def probe_b1(jobs: list[tuple[Path, Path]], caps: list[int]) -> dict:
     from t3fs_torch.ops import cuda_codec as cc
 
     variants = [None, *caps]
-    jobs = [_scratch_b1(csrc, cap) for cap in variants]
-    _nvcc_all(jobs)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(20261016)
@@ -305,7 +387,7 @@ def probe_mma(lib: ctypes.CDLL) -> dict:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=Path,
-                    help="csrc/ of a checkout with the lookup design of B1")
+                    help="csrc/ of a checkout with the lookup design of B6 (and B1)")
     ap.add_argument("--caps", default="",
                     help="comma-separated kBlocksPerSm caps to time as scratch copies")
     args = ap.parse_args(argv)
@@ -320,7 +402,14 @@ def main(argv: list[str] | None = None) -> int:
     caps = [int(c) for c in args.caps.split(",") if c]
     out = {"card": card}
     if args.csrc:
-        out["b1"] = probe_b1(args.csrc.resolve(), caps)
+        csrc = args.csrc.resolve()
+        old_b1 = "mma.sync" not in (csrc / "crc_words.cu").read_text()
+        b1_jobs = [_scratch_b1(csrc, cap) for cap in [None, *caps]] if old_b1 else []
+        b6_job = _scratch_b6(csrc)
+        _nvcc_all([*b1_jobs, b6_job])
+        if b1_jobs:
+            out["b1"] = probe_b1(b1_jobs, caps)
+        out["b6"] = probe_b6(b6_job[1])
     src = PROBE_DIR / "mma_probe.cu"
     src.write_text(MMA_SRC)
     lib = PROBE_DIR / "libmma_probe.so"

@@ -199,21 +199,43 @@ def event_ms(fn, iters: int, warm: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_samples(fn, calls: int = 20, reps: int = 5) -> list[float]:
-    """ms per call of fn, sorted: `reps` samples, each a replay of `calls`
-    calls captured once in a CUDA graph, so the host's launch overhead is
-    out of calls too short to hide it."""
+def _captured(fn, calls: int) -> torch.cuda.CUDAGraph:
+    """`calls` calls of fn captured once in a CUDA graph (after one call
+    outside the capture, which builds and loads)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()                                   # builds and loads outside capture
+        fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    return graph
+
+
+def graph_samples(fn, calls: int = 20, reps: int = 5) -> list[float]:
+    """ms per call of fn, sorted: `reps` samples, each a replay of `calls`
+    calls captured once in a CUDA graph, so the host's launch overhead is
+    out of calls too short to hide it."""
+    graph = _captured(fn, calls)
     return sorted(event_ms(graph.replay, 1, warm=1 if i == 0 else 0) / calls
                   for i in range(reps))
+
+
+def interleaved_graph_samples(fns: dict, calls: int = 20,
+                              reps: int = 5) -> dict[str, list[float]]:
+    """graph_samples of several fns taken in turns (a, b, a, b, ...), so a
+    drift of the card's clocks falls on all of them alike: name -> sorted ms
+    per call."""
+    graphs = {name: _captured(fn, calls) for name, fn in fns.items()}
+    for graph in graphs.values():
+        event_ms(graph.replay, 1, warm=1)
+    samples: dict[str, list[float]] = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, graph in graphs.items():
+            samples[name].append(event_ms(graph.replay, 1, warm=0) / calls)
+    return {name: sorted(v) for name, v in samples.items()}
 
 
 def median_ms(fn) -> float:

@@ -7,44 +7,23 @@
 //
 // What it computes: the raw CRC32C (init 0, no final xor, zero-preserving)
 // of each 512-byte segment, and for t3fs_crc32c_words_raw the raw CRC of
-// each whole chunk of `nseg` segments.  Raw CRC is GF(2)-linear in the
-// message bits, so bit r of a segment's CRC is the parity of (row r of the
-// 32 x 4096 CRC matrix) AND (the segment's 4096 bits).  The TPU ran that as
-// 32 int8 bit-plane matmuls on the MXU.  Here it is one binary tensor-core
-// product, mma.sync.m16n8k256.b1.and.popc, which reads the packed words as
-// they lie in memory:
+// each whole chunk of `nseg` segments.  The TPU ran the segment CRC as 32
+// int8 bit-plane matmuls on the MXU.  Here it is the binary tensor-core
+// product of crc_common.cuh (mma.sync.m16n8k256.b1.and.popc, 4 mma a
+// segment, its operand A, epilogue and run fold shared with the byte
+// kernel B6), which reads the packed words as they lie in memory.  What is
+// this kernel's own is the feed:
 //
-//   - A is the CRC matrix, 32 rows of 128 u32 (CodecTables.crc_mma_a, bit
-//     i of word w of row r = Lseg[32w + i][r]), two m-tiles of 16 rows, in
-//     shared memory for the block's life, laid out per (m-tile, k-step,
-//     lane) so that each k-step's fragment is one conflict-free 16-byte
-//     load;
-//   - B is 8 segments an n-tile, one a column.  The order in which the 4096
-//     bits meet the k axis is free as long as A follows it, so lane (g, t)
-//     of the warp reads words 16q+4t .. 16q+4t+3 of segment g (q = 0..7) as
-//     one uint4, and k-step ks takes words w0 = 16(ks/2) + 4t + 2(ks%2) and
-//     w0+1 as its b0, b1;
-//   - a warp takes a unit of up to 16 segments (two n-tiles) at once: 16
-//     k-steps x 2 m-tiles x 2 n-tiles = 64 mma in four independent chains,
-//     4 mma a segment (about 160 lookup instructions a segment before);
-//   - the data moves by asynchronous copies: each warp streams its units
-//     through its own ring of 3 stages of 8 KiB in shared memory, cp.async
-//     16 bytes a lane (a warp instruction copies one whole segment) two
-//     units ahead of the one it multiplies, so 16 KiB a warp, 128 KiB an SM,
-//     stay in flight; odd segments swap their 64-byte halves in the ring so
-//     the fragment reads of a quarter-warp hit distinct banks;
-//   - epilogue: bit 0 of each s32 sum is a CRC bit; each lane places its
-//     four sums' bits at rows g, g+8, g+16, g+24 of its two columns and
-//     three shuffles OR the 8 lanes of a column together.
-//
-// Chunk combine: raw(chunk) = XOR_s P[s] . raw(seg_s), P[s] = Mb^(512(S-1-s)).
-// A unit is one run of `spw` (<= 16) consecutive segments of one chunk; the
-// warp folds it by Horner (acc = Mb^512 . acc ^ seg), Mb^512 applied as four
-// byte lookups in a 4 KiB shared table (CodecTables.seg_shift_bytes), then
-// applies P[last segment of the run] as one GF(2) matrix-vector product
-// (lane i holds column i, a warp XOR reduction).  crc_fold_kernel XORs
-// each chunk's runs.  t3fs_crc_seg_words takes units of 16 rows of any R,
-// the last one ragged (its missing columns load zeros and are not stored).
+//   - each warp streams its units through its own ring of 3 stages of 8 KiB
+//     in shared memory, cp.async 16 bytes a lane (a warp instruction copies
+//     one whole segment) two units ahead of the one it multiplies, so 16 KiB
+//     a warp, 128 KiB an SM, stay in flight; odd segments swap their 64-byte
+//     halves in the ring so the fragment reads of a quarter-warp hit
+//     distinct banks;
+//   - a unit is one run of `spw` (<= 16, dividing nseg) consecutive
+//     segments of one chunk, folded as crc_common.cuh says;
+//     t3fs_crc_seg_words takes units of 16 rows of any R, the last one
+//     ragged (its missing columns load zeros and are not stored).
 //
 // Why this design (NVIDIA H100 80GB HBM3, 700 W; measured by
 // t3fs_torch/benchmarks/b1_probe.py and chip_smoke.py, see PERF.md): the
@@ -65,15 +44,9 @@
 
 namespace {
 
-constexpr int kUnitSegs = 16;       // segments a warp takes at once: two n-tiles
-constexpr int kKSteps = 16;         // 4096 bits / 256 a k-step
 constexpr int kStages = 3;          // a warp's ring: one unit in use, two loading
 constexpr int kStageU4 = kUnitSegs * 32;   // one unit, 8 KiB
 
-struct Tables {
-  uint4 a[2][kKSteps][32];          // A fragments [m-tile][k-step][lane]: 16 KiB
-  uint32_t shift[4][256];           // Mb^512 . (v << 8j) at [j][v]: 4 KiB
-};
 // dynamic shared memory: the tables, then each warp's ring (212 KiB)
 constexpr size_t kSmemBytes =
     sizeof(Tables) + sizeof(uint4) * kWarps * kStages * kStageU4;
@@ -108,45 +81,6 @@ __device__ __forceinline__ void load_unit(uint4* stage,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// D += popc(A AND B) over 256 k: A 16 x 256 bits (a.x..a.w), B 256 x 8.
-__device__ __forceinline__ void mma_b1(int (&d)[4], const uint4& a, uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// Word of the segment that k-step ks of lane t pairs with its b0 (b1: +1).
-__device__ __forceinline__ int k_word(int ks, int t) {
-  return 16 * (ks >> 1) + 4 * t + 2 * (ks & 1);
-}
-
-__device__ void load_tables(Tables& T, const uint32_t* __restrict__ amat,
-                            const uint32_t* __restrict__ shift_bytes) {
-  uint32_t* a = reinterpret_cast<uint32_t*>(T.a);
-  // all 16 loads of a thread in flight at once
-#pragma unroll
-  for (int j = 0; j < 2 * kKSteps * 32 * 4 / kThreads; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i & 3, lane = (i >> 2) & 31, ks = (i >> 7) & 15, mt = i >> 11;
-    // a0: row g, b0's words; a1: row g + 8; a2, a3: the same rows, b1's words
-    const int row = 16 * mt + (lane >> 2) + 8 * (r & 1);
-    a[i] = amat[row * 128 + k_word(ks, lane & 3) + (r >> 1)];
-  }
-  uint32_t* s = &T.shift[0][0];
-  if (shift_bytes)                             // the folding entry's only
-#pragma unroll
-    for (int j = 0; j < 4 * 256 / kThreads; ++j)
-      s[threadIdx.x + j * kThreads] = shift_bytes[threadIdx.x + j * kThreads];
-  __syncthreads();
-}
-
-__device__ __forceinline__ uint32_t shift512(const Tables& T, uint32_t x) {
-  return T.shift[0][x & 0xFFu] ^ T.shift[1][(x >> 8) & 0xFFu] ^
-         T.shift[2][(x >> 16) & 0xFFu] ^ T.shift[3][x >> 24];
-}
-
 // The CRCs of the unit's ncols (<= 16) segments in `stage`: on return lane
 // (g, t) holds column 8 nt + 2 t + p in v[nt][p].
 __device__ __forceinline__ void unit_crcs(const Tables& T, const uint4* stage,
@@ -154,39 +88,13 @@ __device__ __forceinline__ void unit_crcs(const Tables& T, const uint4* stage,
                                           uint32_t (&v)[2][2]) {
   const int g = lane >> 2, t = lane & 3;
   int d[2][2][4] = {};                         // [m-tile][n-tile][c0..c3]
-  const bool two = ncols > 8;
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
-    // words 16q + 4t .. +3 of segments g and 8 + g: k-steps 2q and 2q + 1
     const uint4 x[2] = {stage[ring_at(g, 4 * q + t)],
                         stage[ring_at(8 + g, 4 * q + t)]};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int ks = 2 * q + h;
-      const uint4 a0 = T.a[0][ks][lane], a1 = T.a[1][ks][lane];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        if (nt == 1 && !two) break;
-        const uint32_t b0 = h ? x[nt].z : x[nt].x, b1 = h ? x[nt].w : x[nt].y;
-        mma_b1(d[0][nt], a0, b0, b1);
-        mma_b1(d[1][nt], a1, b0, b1);
-      }
-    }
+    mma_chunk(T, q, x, ncols > 8, lane, d);
   }
-  // c0, c1: row g, columns 2t, 2t+1; c2, c3: row g + 8; m-tile 1: rows + 16
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint32_t x = ((uint32_t)(d[0][nt][p] & 1) << g) |
-                   ((uint32_t)(d[0][nt][p + 2] & 1) << (g + 8)) |
-                   ((uint32_t)(d[1][nt][p] & 1) << (g + 16)) |
-                   ((uint32_t)(d[1][nt][p + 2] & 1) << (g + 24));
-      x |= __shfl_xor_sync(0xffffffffu, x, 4);
-      x |= __shfl_xor_sync(0xffffffffu, x, 8);
-      x |= __shfl_xor_sync(0xffffffffu, x, 16);
-      v[nt][p] = x;
-    }
+  unit_epilogue(d, lane, v);
 }
 
 __device__ __forceinline__ int unit_cols(long long u, long long total,
@@ -253,15 +161,9 @@ crc_mma_kernel(const uint4* __restrict__ words, long long nunits,
           }
       continue;
     }
-    uint32_t acc = 0;
-#pragma unroll
-    for (int c = 0; c < kUnitSegs; ++c) {
-      if (c >= ncols) break;
-      const uint32_t mine = (c & 8) ? v[1][c & 1] : v[0][c & 1];
-      acc = shift512(T, acc) ^ __shfl_sync(0xffffffffu, mine, (c >> 1) & 3);
-    }
     const long long s_last = (seg0 + ncols - 1) % nseg;
-    acc = matvec(comb_cols[s_last * 32 + lane], acc, lane);
+    const uint32_t acc =
+        fold_run(T, v, ncols, comb_cols[s_last * 32 + lane], lane);
     if (lane == 0) out[u] = acc;
   }
 }
@@ -271,18 +173,13 @@ cudaError_t launch_mma(const void* words, long long nunits, long long total,
                        int unit_segs, int nseg, const void* amat,
                        const void* shift_bytes, const void* comb_cols, void* out,
                        cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(crc_mma_kernel<kFold>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kSmemBytes);
+  const cudaError_t e = cudaFuncSetAttribute(
+      crc_mma_kernel<kFold>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
   if (e != cudaSuccess) return e;
   // one block an SM: the rings take most of its shared memory
   const long long want = (nunits + kWarps - 1) / kWarps;
-  const long long cap = sms > 0 ? sms : 1;
+  const long long cap = sm_count();
   crc_mma_kernel<kFold><<<(int)(want < cap ? want : cap), kThreads, kSmemBytes,
                           stream>>>(
       static_cast<const uint4*>(words), nunits, total, unit_segs, nseg,

@@ -47,7 +47,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
                               _P],
     },
     "crc_bytes": {
-        "t3fs_crc32c_bytes_raw": [_P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P],
+        "t3fs_crc32c_bytes_raw": [_P, _LL, _LL, _I, _P, _P, _P, _P, _P, _P],
     },
     "copy3d": {
         "t3fs_copy3d": [_P, _P, _LL, _P],

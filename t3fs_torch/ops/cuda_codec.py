@@ -21,9 +21,10 @@ version beside it and a launch counter:
                   launch per tile of <= 8 output shards and <= 227 KiB of
                   tables, XOR-accumulated over input groups
   crc_bytes       B6: raw CRC32C of byte rows of any length and alignment,
-                  front-padded to whole segments, and the row combine --
-                  replaces _crc_seg_kernel (pallas_codec.py:116) and the
-                  combine einsum of make_crc32c_raw_fast
+                  front-padded to whole segments, and the row combine, on
+                  B1's tensor-core product -- replaces _crc_seg_kernel
+                  (pallas_codec.py:116) and the combine einsum of
+                  make_crc32c_raw_fast
 
 Data contract (the reference's): the word kernels take the little-endian
 uint32 view of the byte shards (byte j is byte j % 4 of word j // 4),
@@ -60,8 +61,8 @@ launches: dict[str, int] = {"crc_words": 0, "rs_raid6_words": 0,
                             "rs_reconstruct_words": 0, "repair_words": 0,
                             "rs_bitmatmul": 0, "crc_bytes": 0}
 
-# consecutive segments one warp folds before its partial is written (B1
-# takes at most 16, two of its tensor-core n-tiles)
+# consecutive segments one warp folds before its partial is written (at
+# most 16, two of the tensor-core n-tiles of B1 and B6)
 _RUN_SEGS = 16
 # B3's limits (csrc/rs_reconstruct_words.cu); past them the wrapper runs B5
 _B3_MAX_K, _B3_MAX_WANT = 32, 2
@@ -391,6 +392,12 @@ def rs_bitmatmul(shards: torch.Tensor, gmap: GFMapTables) -> torch.Tensor:
 
 # --- B6: CRC bytes ----------------------------------------------------------
 
+def crc_bytes_runs(nseg: int) -> int:
+    """B6's runs a row of `nseg` segments: ceil(nseg / 16), the first one
+    ragged (nseg % 16 segments, or 16), the others 16 each."""
+    return -(-nseg // _RUN_SEGS)
+
+
 def _seg_bytes_bits_plain(rows: torch.Tensor, tables: CrcBytesTables
                           ) -> torch.Tensor:
     """(R, 512) uint8 -> (R, 32) float32 0/1 raw segment CRC bits, the TPU
@@ -439,19 +446,18 @@ def crc_bytes_raw(rows: torch.Tensor, tables: CrcBytesTables) -> torch.Tensor:
                          f"rows of {L} bytes need {crc_nseg(L)}")
     if rows.device.type == "cpu":
         return crc_bytes_raw_plain(rows, tables)
-    _check_cuda(rows, "crc_bytes_raw", tables.nibble_table.device, aligned=False)
+    _check_cuda(rows, "crc_bytes_raw", tables.crc_mma_a.device, aligned=False)
     if n == 0 or L == 0:
         return torch.zeros(n, dtype=torch.int32, device=rows.device)
     out = torch.empty(n, dtype=torch.int32, device=rows.device)
-    spw = pick_block(tables.nseg, _RUN_SEGS)
-    partial = torch.empty(n * (tables.nseg // spw), dtype=torch.int32,
+    partial = torch.empty(n * crc_bytes_runs(tables.nseg), dtype=torch.int32,
                           device=rows.device)
     from t3fs_torch.ops._build import check, library
 
     lib = library("crc_bytes")
     check(lib, lib.t3fs_crc32c_bytes_raw(
-        rows.data_ptr(), n, L, tables.nseg, spw, tables.nibble_table.data_ptr(),
-        tables.combine_cols.data_ptr(), tables.seg_shift_cols.data_ptr(),
+        rows.data_ptr(), n, L, tables.nseg, tables.crc_mma_a.data_ptr(),
+        tables.combine_cols.data_ptr(), tables.seg_shift_bytes.data_ptr(),
         partial.data_ptr(), out.data_ptr(), _stream(rows)), "crc_bytes_raw")
     launches["crc_bytes"] += 1
     return out

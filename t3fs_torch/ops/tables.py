@@ -19,7 +19,7 @@ take their constants from a CodecTables and nowhere else.
 
 The byte-path CRC (B6) has its own, from `build_crc_bytes_arrays` and
 `load_crc_bytes_tables`: the segment matrix (plane-major for the plain
-version, a nibble table for the kernel) and the combine stack.
+version, B1's operand A for the kernel) and the combine stack.
 
 The read side's constants follow the same pattern.  A GF(2^8)-linear map of
 k input shards to r output shards (a decode pattern, or the encode's parity
@@ -200,37 +200,19 @@ def build_crc_bytes_arrays(nseg: int = 1) -> dict[str, np.ndarray]:
     }
 
 
-def _byte_nibble_table(seg_matrix: np.ndarray) -> np.ndarray:
-    """B6's lookup table, straight from the (4096, 32) segment matrix, in
-    the word kernel's layout (16384,) int32: entry [j][v][i][l] is the XOR
-    of the CRC columns of the set bits of nibble value v at nibble j % 2 of
-    segment byte 16l + 4i + j // 2 (lane l holds words 4l..4l+3)."""
-    w = np.uint64(1) << np.arange(32, dtype=np.uint64)
-    cols = (np.asarray(seg_matrix, dtype=np.uint64) * w).sum(axis=1)
-    V = cols.astype(np.uint32).reshape(SEG_BYTES, 2, 4)     # [byte, nibble, bit]
-    table = np.zeros((SEG_BYTES, 2, 16), dtype=np.uint32)
-    for v in range(16):
-        for t in range(4):
-            if (v >> t) & 1:
-                table[:, :, v] ^= V[:, :, t]
-    # [byte = 16l + 4i + c, h, v] -> [j = 2c + h, v, i, l]
-    table = table.reshape(32, 4, 4, 2, 16).transpose(2, 3, 4, 1, 0)
-    return np.ascontiguousarray(table).reshape(-1).view(np.int32)
-
-
 @dataclass(frozen=True)
 class CrcBytesTables:
     """Device tensors of B6 for rows of `nseg` segments.  The plain version
     reads the plane-major segment matrix and the combine stack; the kernel
-    reads the nibble table and the packed-column forms."""
+    reads B1's packed forms (a segment's bytes are its words' bytes)."""
 
     device: torch.device
     nseg: int
     seg_matrix_pm: torch.Tensor      # (4096, 32) f32 Lseg[perm]: plain B6
     combine_stack: torch.Tensor      # (S, 32, 32) f32: plain combine
-    nibble_table: torch.Tensor       # (16384,) int32: kernel B6
+    crc_mma_a: torch.Tensor          # (4096,) int32 _crc_mma_matrix: kernel B6
     combine_cols: torch.Tensor       # (S, 32) int32: kernel combine
-    seg_shift_cols: torch.Tensor     # (32,) int32: kernel combine (Horner step)
+    seg_shift_bytes: torch.Tensor    # (1024,) int32: kernel combine (Horner step)
 
 
 def load_crc_bytes_tables(arrays: dict[str, np.ndarray],
@@ -252,9 +234,11 @@ def load_crc_bytes_tables(arrays: dict[str, np.ndarray],
         nseg=stack.shape[0],
         seg_matrix_pm=t(Lseg[plane_major_perm(SEG_BYTES)].astype(np.float32)),
         combine_stack=t(stack.astype(np.float32)),
-        nibble_table=t(_byte_nibble_table(Lseg)),
+        # word w's bit i is byte 4w + i // 8's bit i % 8: Lseg row 32w + i
+        crc_mma_a=t(_crc_mma_matrix(Lseg.reshape(SEG_WORDS, 32, 32)
+                                    .transpose(1, 0, 2))),
         combine_cols=t(_pack_columns(stack)),
-        seg_shift_cols=t(_pack_columns(np.asarray(arrays["seg_shift"]))),
+        seg_shift_bytes=t(_byte_tables(np.asarray(arrays["seg_shift"]))),
     )
 
 

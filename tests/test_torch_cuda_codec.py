@@ -21,6 +21,9 @@ from t3fs_torch.ops import cuda_codec as cc
 from t3fs_torch.ops.blocks import pick_block
 from t3fs_torch.ops.rs import default_rs
 from t3fs_torch.ops.tables import build_codec_tables, codec_tables, load_codec_tables
+from torch_crc_model import (
+    a_fragments as _a_fragments, fold_run as _fold_run, k_word as _k_word,
+    mma_b1 as _mma_b1, unit_crcs as _emulate_unit_crcs)
 
 rng = np.random.default_rng(17)
 
@@ -120,63 +123,6 @@ def test_load_codec_tables_from_jax_arrays(nseg):
 
 # --- numpy model of crc_words.cu (B1 as a binary tensor-core product) -------
 
-_LANE = np.arange(32)
-_G, _T = _LANE // 4, _LANE % 4
-
-
-def _k_word(ks, t):
-    """The segment word k-step ks of lane t pairs with its b0 (b1: +1)."""
-    return 16 * (ks >> 1) + 4 * t + 2 * (ks & 1)
-
-
-def _mma_b1(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """mma.sync m16n8k256 b1 and.popc on the lanes' registers, by PTX's
-    fragment layout with bit i of a register as element i (b1_probe.py):
-    a (..., 32, 4), b (..., 32, 2) u32 -> d (..., 32, 4) with d[lane, r] =
-    D[g + 8 (r >> 1), 2 t + (r & 1)]."""
-    r = np.arange(4)
-    tp, h = np.arange(4), np.arange(2)
-    a_lane = 4 * _G[:, None, None, None] + tp[None, None, :, None]      # (32,1,4,1)
-    a_reg = (r[None, :, None, None] >> 1) + 2 * h[None, None, None, :]  # (1,4,1,2)
-    col = 2 * _T[:, None] + (r[None, :] & 1)                            # (32,4)
-    b_lane = 4 * col[:, :, None, None] + tp[None, None, :, None]        # (32,4,4,1)
-    prod = a[..., a_lane, a_reg] & b[..., b_lane, h[None, None, None, :]]
-    return np.bitwise_count(prod).sum(axis=(-1, -2)).astype(np.int64)
-
-
-def _a_fragments(tables) -> np.ndarray:
-    """(2, 16, 32, 4) u32: the kernel's shared A, [m-tile][k-step][lane][r]."""
-    A = tables.crc_mma_a.numpy().view(np.uint32).reshape(32, 128)
-    mt, ks, lane, r = np.meshgrid(np.arange(2), np.arange(16), _LANE, np.arange(4),
-                                  indexing="ij")
-    row = 16 * mt + lane // 4 + 8 * (r & 1)
-    return A[row, _k_word(ks, lane % 4) + (r >> 1)]
-
-
-def _emulate_unit_crcs(frags: np.ndarray, segs: np.ndarray) -> np.ndarray:
-    """unit_crcs: (U, 16, 128) u32 units (zeros past their columns) ->
-    (U, 16) u32 segment CRCs, as the lanes hold them after the epilogue."""
-    U = segs.shape[0]
-    d = np.zeros((U, 2, 2, 32, 4), dtype=np.int64)          # [u, mt, nt, lane, c]
-    for ks in range(16):
-        for nt in range(2):
-            # lane (g, t) loads uint4 4q + t of segment 8 nt + g: words
-            # 16q + 4t .. +3; k-step ks takes components 2(ks % 2), +1
-            w0 = _k_word(ks, _T)
-            b = np.stack([segs[:, 8 * nt + _G, w0], segs[:, 8 * nt + _G, w0 + 1]], -1)
-            for mt in range(2):
-                d[:, mt, nt] += _mma_b1(frags[mt, ks], b)
-    out = np.zeros((U, 16), dtype=np.uint32)
-    for nt in range(2):
-        for p in range(2):
-            x = (((d[:, 0, nt, :, p] & 1) << _G) | ((d[:, 0, nt, :, p + 2] & 1) << (_G + 8))
-                 | ((d[:, 1, nt, :, p] & 1) << (_G + 16))
-                 | ((d[:, 1, nt, :, p + 2] & 1) << (_G + 24)))
-            for t in range(4):                               # OR the 8 lanes of t
-                out[:, 8 * nt + 2 * t + p] = np.bitwise_or.reduce(x[:, _T == t], axis=1)
-    return out
-
-
 def _units(words: np.ndarray, unit_segs: int) -> tuple[np.ndarray, list[int]]:
     """(R, 128) segments -> (U, 16, 128) units of unit_segs, zero-padded."""
     R = len(words)
@@ -201,8 +147,6 @@ def _emulate_crc_kernel(words: np.ndarray, tables, spw: int) -> list[int]:
     """t3fs_crc32c_words_raw: units are runs of spw segments; the Horner
     fold acc = Mb^512 . acc ^ seg with Mb^512 as four byte lookups, then
     P[last] of the run; the runs of a chunk XOR together."""
-    shift = tables.seg_shift_bytes.numpy().view(np.uint32).reshape(4, 256)
-    comb = tables.combine_cols.numpy().view(np.uint32)
     S = tables.nseg
     units, _ = _units(words.reshape(-1, 128), spw)
     crcs = _emulate_unit_crcs(_a_fragments(tables), units)
@@ -210,16 +154,8 @@ def _emulate_crc_kernel(words: np.ndarray, tables, spw: int) -> list[int]:
     for chunk in range(len(words)):
         total = 0
         for r in range(S // spw):
-            acc = 0
-            for c in range(spw):
-                acc = (int(shift[0][acc & 255]) ^ int(shift[1][(acc >> 8) & 255])
-                       ^ int(shift[2][(acc >> 16) & 255]) ^ int(shift[3][acc >> 24])
-                       ^ int(crcs[chunk * (S // spw) + r, c]))
-            y = 0
-            for i in range(32):
-                if (acc >> i) & 1:
-                    y ^= int(comb[r * spw + spw - 1][i])
-            total ^= y
+            total ^= _fold_run(tables, crcs[chunk * (S // spw) + r], spw,
+                               r * spw + spw - 1)
         out.append(total)
     return out
 
