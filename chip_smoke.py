@@ -22,9 +22,10 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      bounds (each the median of REPEATS samples, with their min and max)
   6  B3 (RAID-6 decode words), B4 (repair words) and B5 (byte-plane
      bit-matmul) against their plain versions: B3 on all 55 RS(8+2)
-     erasure patterns of one 8 x 1 MiB stripe and at 12 stripes for two
-     patterns; B4 on the 10 single-row programs and the LRC all-ones
-     program at 96 x 256 KiB sub-shards; B5 decode and encode on RS(6+3)
+     erasure patterns of one 8 x 1 MiB stripe (uint4 and u32 paths), at
+     RAID-6 k = 12, 31, 32 (survivors in several groups of 8) and at 12
+     stripes for two patterns; B4 on the 10 single-row programs and the LRC
+     all-ones program at 96 x 256 KiB sub-shards; B5 decode and encode on RS(6+3)
      (HDFS's RS-6-3-1024k policy) at 12 x 1 MiB shards; one rebuilt stripe
      of each kind against RSCode.decode_ref / eval_program_np
   7  degraded-read path: 24 concurrent TorchECCodec.reconstruct_verified on
@@ -34,8 +35,9 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      stitched with crc32c_combine; then LRC local-parity encodes
   9  non-RAID-6 reconstruct: 12 concurrent RS(6+3) reconstruct calls at
      1 MiB shards losing 3 shards (B5)
- 10  CUDA-event times of B3, B4, B5 and the fused decode and repair steps
-     beside their bounds
+ 10  CUDA-event times of B3 (want (0, 9), (0, 1), (0, 5), (4, 8), (3,)),
+     B4, B5 and the fused decode and repair steps beside their bounds (the
+     decode step also replayed from a CUDA graph)
  11  B6 (CRC bytes) against its plain version: random segments, 64 x 4 MiB
      rows, 64 x (4 MiB - 5) rows (unaligned) and 64 x 1 000 000-byte rows
      (a ragged first run), rows at every base offset 0..15, odd lengths
@@ -108,6 +110,11 @@ LOST63 = (1, 4, 7)
 LRC_GROUP = 3                  # ECLayout.local_group_size
 ODD_CHUNK = 1_000_000          # a chunk length that is not whole 512-byte segments
 MSR_LOSSES = ((0, 9), (4, 9))  # pm-msr two-loss reads: a data + a parity slot
+# B3's timed patterns (phase 10): (0, 9) one Horner row and one XOR fold,
+# (0, 1) the decode bench's, (0, 5) and (4, 8) phase 7's, (3,) a pure XOR fold
+B3_WANTS = ((0, 9), (0, 1), (0, 5), (4, 8), (3,))
+# RAID-6 k past one group of 8 survivors, up to B3's limit (phase 6)
+B3_GROUP_KS = (12, 31, 32)
 # B6's timed shapes (phase 14): whole segments, rows at all 16 misalignments,
 # and ODD_CHUNK (1954 segments: runs of 16 after a ragged first run of 2)
 B6_SHAPES = (("64 x 4 MiB", CHUNK_BYTES),
@@ -505,13 +512,27 @@ def phase_read_kernels(dev: torch.device, g: torch.Generator) -> dict[str, int]:
     W = SHARD_BYTES // 4
     errs = {}
     one = rand_words(g, dev, 1, K, W)
+    odd = one[:, :, :W - 1].contiguous()         # w % 4 != 0: the u32 path
     e = 0
     for present, want in erasure_patterns():
         dec = decode_tables(present, want, rs, dev)
-        e = max(e, max_abs_err(cc.rs_reconstruct_words(one, dec),
-                               cc.rs_reconstruct_words_plain(one, dec)))
+        for x in (one, odd):
+            e = max(e, max_abs_err(cc.rs_reconstruct_words(x, dec),
+                                   cc.rs_reconstruct_words_plain(x, dec)))
     log(f"[6] rs_reconstruct_words, all 55 RS(8+2) erasure patterns at (1, {K}, "
-        f"{W}): max_abs_err={e}")
+        f"{W}) (uint4 path) and (1, {K}, {W - 1}) (u32 path): max_abs_err={e}")
+    for kk in B3_GROUP_KS:                       # survivors in several groups of 8
+        rsk = default_rs(kk, M)
+        x = rand_words(g, dev, 4, kk, W // 4)
+        ek = 0
+        for lost in ((0, kk + 1), (kk // 2,), (3, kk)):
+            dec = decode_tables(present_of(lost, kk + M, kk), lost, rsk, dev)
+            for xx in (x, x[:, :, 1:].contiguous()):
+                ek = max(ek, max_abs_err(cc.rs_reconstruct_words(xx, dec),
+                                         cc.rs_reconstruct_words_plain(xx, dec)))
+        log(f"[6] rs_reconstruct_words RAID-6 k = {kk} at (4, {kk}, {W // 4}) and "
+            f"(4, {kk}, {W // 4 - 1}), 3 patterns: max_abs_err={ek}")
+        e = max(e, ek)
     words = rand_words(g, dev, STRIPES, K, W)
     for want in ((3,), (0, 9)):
         dec = decode_tables(present_of(want, K + M, K), want, rs, dev)
@@ -765,7 +786,7 @@ def phase_read_times(dev: torch.device, g: torch.Generator) -> dict:
     W = SHARD_BYTES // 4
     words = rand_words(g, dev, STRIPES, K, W)
     tcrc = codec_tables(W // 128, device=dev)
-    for want in ((0, 9), (3,)):
+    for want in B3_WANTS:
         present = present_of(want, K + M, K)
         dec = decode_tables(present, want, rs, dev)
         out[f"rs_reconstruct_words want={want}"] = {
@@ -788,6 +809,10 @@ def phase_read_times(dev: torch.device, g: torch.Generator) -> dict:
         "plain_ms": time_ms(plain_decode_step, 2, 1),
         "bound_ms": (K + 2) * W * 4 * STRIPES / HBM_BYTES_PER_S * 1e3,
         "shape": f"({STRIPES}, {K}, {W})",
+    }
+    # the step's time from the host against its time on the card alone
+    out["decode_step want=(0, 9), CUDA graph"] = {
+        **out["decode_step want=(0, 9)"], **graph_kernel_times(lambda: step(words)),
     }
     del words
 

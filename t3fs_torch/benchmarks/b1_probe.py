@@ -1,23 +1,27 @@
-"""The measurements that chose the tensor-core design of B1 and B6
-(t3fs_torch/csrc/crc_words.cu, crc_bytes.cu).
+"""The measurements that chose the designs of B1, B6 and B3
+(t3fs_torch/csrc/crc_words.cu, crc_bytes.cu, rs_reconstruct_words.cu).
 
     python3 -m t3fs_torch.benchmarks.b1_probe [--csrc DIR [--caps 1,2,3]]
 
-1. With --csrc, B1's and B6's nibble-lookup designs as built from the
-   sources in DIR (t3fs_torch/csrc/ of a checkout before the tensor-core
-   designs: `git archive bc5a43a t3fs_torch/csrc` for B1's, `git archive
-   6ba1fb3 t3fs_torch/csrc` for B6's; unpack it under _archive/, which
-   .gitignore lists):
-   - B1 through its C entry t3fs_crc32c_words_raw, at 64 x 4 MiB (from HBM)
+1. With --csrc, the kernels of an older checkout as built from the sources
+   in DIR (its t3fs_torch/csrc/, e.g. `git archive a69e274
+   t3fs_torch/csrc`, unpacked under _archive/, which .gitignore lists),
+   against this checkout's:
+   - B3 (RAID-6 word decode) through its C entry t3fs_rs_reconstruct_words,
+     DIR's and this checkout's, in turns, twice over, at (12, 8, 256Ki
+     words) and five patterns: want (0, 9), (0, 1), (0, 5), (4, 8), (3,);
+   - where DIR's B1 is still the nibble-lookup design (`bc5a43a`): B1
+     through its C entry t3fs_crc32c_words_raw, at 64 x 4 MiB (from HBM)
      and at 2 x 4 MiB (8 MiB, which stays in the 50 MB L2 across calls).
      With --caps, scratch copies of DIR whose `kBlocksPerSm = N` line is set
      to each N are timed too (the grid-size cap of that design in
-     crc_common.cuh); DIR is not changed.  Skipped when DIR's crc_words.cu
-     is already the tensor-core design;
-   - B6 through its C entry t3fs_crc32c_bytes_raw against this checkout's
-     B6 (cuda_codec.crc_bytes_raw), in turns new, old, new, old, at 64 x
+     crc_common.cuh); DIR is not changed;
+   - where DIR's B6 is still the nibble-lookup design (`6ba1fb3`): B6
+     through its C entry t3fs_crc32c_bytes_raw against this checkout's B6
+     (cuda_codec.crc_bytes_raw), in turns new, old, new, old, at 64 x
      4 MiB (rows aligned) and 64 x (4 MiB - 5) (rows at all 16
      misalignments).
+   Each library's ptxas registers and spills are printed and kept.
 2. mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc: which bit of
    a .b32 register of A pairs with which bit of B (random fragments against
    the host under PTX's fragment layout, and one-hot A against one-hot B),
@@ -53,6 +57,9 @@ from t3fs_torch.ops.tables import (
     crc_bytes_tables, crc_nseg)
 
 PROBE_DIR = _build.BUILD_DIR / "probe"
+# B3's patterns (chip_smoke.py's phase 10): (0, 9), the decode bench's (0, 1),
+# phase 7's double erasures, a single data erasure
+B3_WANTS = ((0, 9), (0, 1), (0, 5), (4, 8), (3,))
 HBM_BYTES_PER_S = 3.35e12
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
@@ -131,43 +138,42 @@ int probe_rate(int b1, int chains, int blocks, int warps, int iters, void* cycle
 """
 
 
-def _nvcc_all(jobs: list[tuple[Path, Path]]) -> None:
-    """Compile each (source, library) pair, all at once."""
+def _nvcc_all(jobs: list[tuple[Path, Path]]) -> dict[str, list[str]]:
+    """Compile each (source, library) pair, all at once; each library's
+    ptxas lines of registers and spills, by its directory's name."""
     nvcc = _build._nvcc()
     procs = [(src, subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for src, lib in jobs]
+    ptxas = {}
     for src, proc in procs:
         log, _ = proc.communicate()
-        for line in log.strip().splitlines():
-            print(f"nvcc {src.parent.name}/{src.name}: {line.strip()}", flush=True)
+        lines = [line.strip() for line in log.strip().splitlines()]
+        for line in lines:
+            print(f"nvcc {src.parent.name}/{src.name}: {line}", flush=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {src}")
+        ptxas[src.parent.name] = [line for line in lines
+                                  if "registers" in line or "spill" in line]
+    return ptxas
 
 
-def _scratch_b1(csrc: Path, cap: int | None) -> tuple[Path, Path]:
-    """A copy of csrc's B1 sources (kBlocksPerSm set to `cap` if given)."""
-    d = PROBE_DIR / f"b1_{'as_is' if cap is None else f'cap{cap}'}"
+def _scratch(csrc: Path, name: str, label: str,
+             cap: int | None = None) -> tuple[Path, Path]:
+    """A copy of csrc's `name`.cu and headers under PROBE_DIR/label, with
+    its `kBlocksPerSm = ` line (in the source or a header) set to `cap` if
+    given."""
+    d = PROBE_DIR / label
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    for f in [csrc / "crc_words.cu", *csrc.glob("*.cuh")]:
+    for f in [csrc / f"{name}.cu", *csrc.glob("*.cuh")]:
         text = f.read_text()
         if cap is not None and "kBlocksPerSm = " in text:
             head, tail = text.split("kBlocksPerSm = ", 1)
             text = head + f"kBlocksPerSm = {cap};" + tail.split(";", 1)[1]
         (d / f.name).write_text(text)
-    return d / "crc_words.cu", d / "libcrc_words.so"
-
-
-def _scratch_b6(csrc: Path) -> tuple[Path, Path]:
-    """A copy of csrc's B6 sources."""
-    d = PROBE_DIR / "b6_old"
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    for f in [csrc / "crc_bytes.cu", *csrc.glob("*.cuh")]:
-        (d / f.name).write_text(f.read_text())
-    return d / "crc_bytes.cu", d / "libcrc_bytes.so"
+    return d / f"{name}.cu", d / f"lib{name}.so"
 
 
 def nibble_table() -> np.ndarray:
@@ -269,6 +275,62 @@ def probe_b6(lib_path: Path) -> dict:
               f"{times['new'][1] / times['old'][1]:.3f}; exact against plain: {exact}",
               flush=True)
         del rows
+    return res
+
+
+def time_b3(lib: ctypes.CDLL, words: torch.Tensor, out: torch.Tensor, dec) -> float:
+    """Median ms of a library's t3fs_rs_reconstruct_words on `words` by the
+    decode pattern `dec`, through its C entry (out filled)."""
+    fn = lib.t3fs_rs_reconstruct_words
+    fn.argtypes = _build.SIGNATURES["rs_reconstruct_words"]["t3fs_rs_reconstruct_words"]
+    n, k, w = words.shape
+    flat = [c for row in dec.coeff_rows for c in row]
+    coeffs = (ctypes.c_uint8 * len(flat))(*flat)
+
+    def call():
+        rc = fn(words.data_ptr(), out.data_ptr(), n, k, dec.rows, w, coeffs,
+                dec.poly_low, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"t3fs_rs_reconstruct_words: CUDA error {rc}")
+
+    return median_ms(call)
+
+
+def probe_b3(libs: dict[str, Path]) -> dict:
+    """B3 libraries (label -> path) in turns, twice over, at (12, 8, 256Ki
+    words) and the five patterns of chip_smoke's phase 10, each output held
+    against the plain version."""
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.tables import decode_tables
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(20261018)
+    k, w = 8, (1 << 20) // 4
+    words = torch.randint(-2**31, 2**31, (12, k, w), dtype=torch.int32, device=dev,
+                          generator=g)
+    loaded = {label: ctypes.CDLL(str(path)) for label, path in libs.items()}
+    res = {}
+    for want in B3_WANTS:
+        present = tuple(s for s in range(k + 2) if s not in want)[:k]
+        dec = decode_tables(present, want, default_rs(k, 2), dev)
+        ref = cc.rs_reconstruct_words_plain(words, dec)
+        out = torch.empty_like(ref)
+        times: dict[str, list[float]] = {label: [] for label in loaded}
+        exact = {label: True for label in loaded}
+        for _ in range(2):
+            for label, lib in loaded.items():
+                out.zero_()
+                times[label].append(time_b3(lib, words, out, dec))
+                torch.cuda.synchronize()
+                exact[label] &= torch.equal(out, ref)
+        bound_us = (k + len(want)) * w * 4 * 12 / HBM_BYTES_PER_S * 1e6
+        res[str(want)] = {"bound_us": bound_us, "ms": times, "exact": exact}
+        print(f"B3 want={want} (12, {k}, {w}) (bound {bound_us:.1f} us): " + "; ".join(
+            f"{label} {', '.join(f'{t * 1e3:.1f}' for t in ts)} us"
+            f" ({bound_us / (ts[0] * 1e3) * 100:.1f}%, exact {exact[label]})"
+            for label, ts in times.items()) + " (in turns, twice)", flush=True)
     return res
 
 
@@ -387,7 +449,8 @@ def probe_mma(lib: ctypes.CDLL) -> dict:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=Path,
-                    help="csrc/ of a checkout with the lookup design of B6 (and B1)")
+                    help="csrc/ of an older checkout: its B3 (and lookup B1 / B6) "
+                         "against this one's")
     ap.add_argument("--caps", default="",
                     help="comma-separated kBlocksPerSm caps to time as scratch copies")
     args = ap.parse_args(argv)
@@ -403,13 +466,21 @@ def main(argv: list[str] | None = None) -> int:
     out = {"card": card}
     if args.csrc:
         csrc = args.csrc.resolve()
-        old_b1 = "mma.sync" not in (csrc / "crc_words.cu").read_text()
-        b1_jobs = [_scratch_b1(csrc, cap) for cap in [None, *caps]] if old_b1 else []
-        b6_job = _scratch_b6(csrc)
-        _nvcc_all([*b1_jobs, b6_job])
+        # the nibble-lookup designs' C entries take the lookup table
+        lookup = {name: "const void* table" in (csrc / f"{name}.cu").read_text()
+                  for name in ("crc_words", "crc_bytes")}
+        b1_jobs = ([_scratch(csrc, "crc_words", f"b1_{'as_is' if cap is None else f'cap{cap}'}",
+                             cap) for cap in [None, *caps]]
+                   if lookup["crc_words"] else [])
+        b6_jobs = [_scratch(csrc, "crc_bytes", "b6_old")] if lookup["crc_bytes"] else []
+        b3_jobs = {"new": _scratch(_build.SRC_DIR, "rs_reconstruct_words", "b3_new"),
+                   "old": _scratch(csrc, "rs_reconstruct_words", "b3_old")}
+        out["ptxas"] = _nvcc_all([*b1_jobs, *b6_jobs, *b3_jobs.values()])
         if b1_jobs:
             out["b1"] = probe_b1(b1_jobs, caps)
-        out["b6"] = probe_b6(b6_job[1])
+        if b6_jobs:
+            out["b6"] = probe_b6(b6_jobs[0][1])
+        out["b3"] = probe_b3({label: lib for label, (_src, lib) in b3_jobs.items()})
     src = PROBE_DIR / "mma_probe.cu"
     src.write_text(MMA_SRC)
     lib = PROBE_DIR / "libmma_probe.so"

@@ -10,7 +10,8 @@ version beside it and a launch counter:
   rs_raid6_words  B2: RAID-6 P/Q parity -- replaces _rs_raid6_words_kernel
                   (pallas_codec.py:261)
   rs_reconstruct_words
-                  B3: RAID-6 decode of 1 or 2 shards on packed words -- replaces
+                  B3: RAID-6 decode of 1 or 2 shards on packed words (plane
+                  sums, a Horner fold per row) -- replaces
                   _rs_reconstruct_words_kernel (pallas_codec.py:502); past
                   k = 32 the wrapper runs B5 on the words' byte view
   repair_words    B4: one scheduled repair row (Horner over bit planes) --

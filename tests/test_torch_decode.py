@@ -2,11 +2,13 @@
 CPU tensors, i.e. their plain versions) against the JAX package's Pallas
 kernels in interpret mode and its XLA bit-matmul; the decode tables against
 the JAX package's arrays; and numpy emulations of the CUDA kernels' own
-arithmetic (B3's packed coefficient ladder, B5's lookup tables), which run
+arithmetic (B3's bit planes and Horner fold, B5's lookup tables), which run
 only on a GPU, where the `cuda` test holds them against the plain versions.
 
 Shapes and masks follow tests/test_pallas_codec.py.  Every comparison is
 bit-exact."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -62,15 +64,23 @@ def test_masks_cover_every_single_and_double_erasure():
 _ALL = _stripes(1, 512)
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_rebuilt(lost) -> np.ndarray:
+    """The JAX kernel in interpret mode on _ALL's survivors: (1, |want|, 128)
+    uint32, built once a pattern for the tests that compare with it."""
+    present, want = _pattern(lost)
+    surv = _ALL[:, list(present)]
+    return np.asarray(pc.make_rs_reconstruct_words_pallas(
+        present, want, ref_default_rs(), block_w=128, interpret=True)(
+        jnp.asarray(np.ascontiguousarray(surv).view(np.uint32))))
+
+
 @pytest.mark.parametrize("lost", MASKS)
 def test_rs_reconstruct_words_plain_matches_pallas(lost):
     present, want = _pattern(lost)
     surv = _ALL[:, list(present)]
-    ref = pc.make_rs_reconstruct_words_pallas(
-        present, want, ref_default_rs(), block_w=128, interpret=True)(
-        jnp.asarray(np.ascontiguousarray(surv).view(np.uint32)))
     got = cc.make_rs_reconstruct_words(present, want, device="cpu")(_t(surv))
-    assert np.array_equal(got.numpy().view(np.uint32), np.asarray(ref))
+    assert np.array_equal(got.numpy().view(np.uint32), _pallas_rebuilt(lost))
     assert np.array_equal(_bytes(got)[0], _ALL[0, list(want)])
 
 
@@ -220,36 +230,143 @@ def test_bitmatmul_tables_pack_eight_outputs_in_two_groups():
                           cc.rs_bitmatmul(torch.from_numpy(shards), gmap).numpy())
 
 
+def _c_entry_program(dec):
+    """B3's program as the C entry t3fs_rs_reconstruct_words builds it from
+    the (rows, k) u8 coefficients: plane[r][b] (bit s: bit b of C[r][s]),
+    top[r] (highest nonempty plane, -1 for a zero row), used (bit s: some
+    row reads survivor s)."""
+    plane = [[0] * 8 for _ in range(2)]
+    top, used = [-1, -1], 0
+    for r in range(dec.rows):
+        for b in range(8):
+            for s in range(dec.k):
+                if (dec.coeff_rows[r][s] >> b) & 1:
+                    plane[r][b] |= 1 << s
+            if plane[r][b]:
+                top[r] = b
+            used |= plane[r][b]
+    return plane, top, used
+
+
 def _emulate_reconstruct_kernel(words: np.ndarray, dec) -> np.ndarray:
-    """numpy model of rs_reconstruct_words.cu: one packed column per shard
-    (row r in byte r), the ladder walks until every row's bits are used."""
+    """numpy model of rs_reconstruct_words.cu, step by step: the C entry's
+    program; survivors loaded in groups of 8 (zero where no row reads
+    them); with k <= 8, each row folded from the registers, plane 7 down
+    (xtimes below its top plane, then the plane's survivors XORed in); past
+    8, each group's selected survivors XORed into the plane sums S[r][b],
+    folded at the end the same way."""
     def xtimes(x):
         return (((x << np.uint32(1)) & np.uint32(0xFEFEFEFE))
                 ^ (((x >> np.uint32(7)) & np.uint32(0x01010101)) * np.uint32(dec.poly_low)))
 
+    plane, top, used = _c_entry_program(dec)
     n, k, W = words.shape
-    acc = np.zeros((dec.rows, n, W), dtype=np.uint32)
-    for s in range(k):
-        col = sum(dec.coeff_rows[r][s] << (8 * r) for r in range(dec.rows))
-        t = words[:, s]
-        while col:
-            for r in range(dec.rows):
-                if (col >> (8 * r)) & 1:
-                    acc[r] ^= t
-            col = (col >> 1) & 0x7F7F7F7F
-            if col:
-                t = xtimes(t)
-    return acc.transpose(1, 0, 2)
+
+    def group(g):
+        return [words[:, 8 * g + j] if (used >> (8 * g + j)) & 1
+                else np.zeros((n, W), np.uint32) for j in range(8)]
+
+    def xor_selected(acc, x, m):
+        for j in range(8):
+            if (m >> j) & 1:
+                acc = acc ^ x[j]
+        return acc
+
+    out = np.zeros((n, dec.rows, W), dtype=np.uint32)
+    if k <= 8:
+        x = group(0)
+        for r in range(dec.rows):
+            acc = np.zeros((n, W), np.uint32)
+            for b in range(7, -1, -1):
+                if b < top[r]:
+                    acc = xtimes(acc)
+                if plane[r][b]:
+                    acc = xor_selected(acc, x, plane[r][b])
+            out[:, r] = acc
+        return out
+    S = np.zeros((dec.rows, 8, n, W), np.uint32)
+    for g in range((k + 7) // 8):
+        x = group(g)
+        for r in range(dec.rows):
+            for b in range(8):
+                m = (plane[r][b] >> (8 * g)) & 0xFF
+                if m:
+                    S[r, b] = xor_selected(S[r, b], x, m)
+    for r in range(dec.rows):
+        acc = np.zeros((n, W), np.uint32)
+        for b in range(7, -1, -1):
+            if b < top[r]:
+                acc = xtimes(acc)
+            acc = acc ^ S[r, b]
+        out[:, r] = acc
+    return out
 
 
-def test_reconstruct_kernel_ladder_emulated_all_masks():
-    words = rng.integers(0, 2**32, (2, 8, 16), dtype=np.uint32)
+def _program_coeffs(dec) -> list[list[int]]:
+    """The coefficients that the C entry's planes encode, (rows, k)."""
+    plane, _, _ = _c_entry_program(dec)
+    return [[sum(((plane[r][b] >> s) & 1) << b for b in range(8))
+             for s in range(dec.k)] for r in range(dec.rows)]
+
+
+def test_reconstruct_kernel_planes_emulated_all_masks():
+    """The kernel's arithmetic (the C entry's planes, plane sums, Horner
+    fold) at all 55 patterns against the plain version and the JAX kernel
+    in interpret mode, bit-exact; the planes encode the JAX package's
+    reconstruct_gfmatrix."""
+    rs = ref_default_rs()
     for lost in MASKS:
         present, want = _pattern(lost)
         dec = decode_tables(present, want, device="cpu")
-        plain = cc.rs_reconstruct_words(torch.from_numpy(words.view(np.int32)), dec)
-        assert np.array_equal(_emulate_reconstruct_kernel(words, dec),
-                              plain.numpy().view(np.uint32)), lost
+        assert np.array_equal(_program_coeffs(dec),
+                              rs.reconstruct_gfmatrix(list(present), list(want))), lost
+        surv = np.ascontiguousarray(_ALL[:, list(present)]).view(np.uint32)
+        got = _emulate_reconstruct_kernel(surv, dec)
+        plain = cc.rs_reconstruct_words(torch.from_numpy(surv.view(np.int32)), dec)
+        assert np.array_equal(got, plain.numpy().view(np.uint32)), lost
+        assert np.array_equal(got, _pallas_rebuilt(lost)), lost
+
+
+@pytest.mark.parametrize("k", [1, 8, 31, 32])
+def test_reconstruct_kernel_planes_match_decode_ref(k):
+    """The C entry's planes, built from the JAX package's decode arrays and
+    evaluated by the kernel's emulation (one group of survivors at k <= 8,
+    plane sums over groups past 8), rebuild what the JAX package's
+    RSCode.decode_ref rebuilds, as the plain version does, for double and
+    single erasures of RAID-6 RS(k+2) encoded by its encode_ref."""
+    rs = ref_default_rs(k, 2)
+    data = rng.integers(0, 256, (k, 64), dtype=np.uint8)
+    full = np.concatenate([data, rs.encode_ref(data)])
+    for lost in ((0, k + 1), (k // 2,), (k, k + 1)):
+        present, want = _pattern(lost, k + 2, k)
+        dec = load_gfmap_tables(_jax_decode_arrays(present, want, k, 2), device="cpu")
+        assert dec.coeff_rows == decode_tables(present, want, default_rs(k, 2),
+                                               device="cpu").coeff_rows, (k, lost)
+        surv = np.ascontiguousarray(full[list(present)])[None].view(np.uint32)
+        got = _emulate_reconstruct_kernel(surv, dec)[0].view(np.uint8)
+        ref = rs.decode_ref(dict(zip(present, full[list(present)])), list(want))
+        assert np.array_equal(got, ref), (k, lost)
+        assert np.array_equal(got, full[list(want)]), (k, lost)
+        plain = cc.rs_reconstruct_words(torch.from_numpy(surv.view(np.int32)), dec)
+        assert np.array_equal(plain.numpy()[0].view(np.uint8), ref), (k, lost)
+
+
+def test_all_ones_rows_have_top_plane_zero():
+    """Every single erasure of a data shard or of P rebuilt from the other
+    data and P (or from the data alone), and that side of (d, 9), is an
+    all-ones row: one plane, a pure XOR fold."""
+    ones = 0
+    for lost in MASKS:
+        dec = decode_tables(*_pattern(lost), device="cpu")
+        plane, top, _ = _c_entry_program(dec)
+        for r, row in enumerate(dec.coeff_rows):
+            if all(c == 1 for c in row):
+                ones += 1
+                assert top[r] == 0 and plane[r][0] == (1 << dec.k) - 1, lost
+                assert not any(plane[r][1:]), lost
+            else:
+                assert top[r] > 0, lost
+    assert ones == 9 + 9              # (0,) .. (8,), and (d, 9) for d <= 8
 
 
 def test_decode_wrappers_reject_bad_input():
