@@ -69,13 +69,29 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      interleaved CUDA-graph replays; then the headline bench
      (`t3fs_torch.bench --quick`: value > 0, the card named, H1 launched)
      and the decode bench (--decode-ab at 12 x 1 MiB stripes)
+ 18  the device sort: 2^24 gensort rows (seed 2026) through sort_bench.measure
+     (sort_columns and make_device_sorter both equal to lexsort_rows; the
+     sort's CUDA-event time beside its bound, H2D, D2H, the host's column
+     extraction and gather, np.lexsort), n = 0, 1, 1023, 1025 and all-0xFF
+     keys against lexsort_rows, then `sort_bench --quick` (2^22)
+ 19  the codec mesh: graft_entry.run_mesh with 4 ranks, dp x cp = 2 x 2, at
+     RS(8+2), 1 MiB shards, 24 stripes (NCCL with a card a rank, else gloo
+     with the ranks sharing the card; the backend is printed): byte and word
+     encode (B2 + B1), byte and word decode of want (0, 9) and (3,) (B3 +
+     B1), the RS(6+3) word decode losing (1, 4, 7) (B5 + B1); every output
+     against the unsharded steps on the card, CRCs spot-checked against
+     crc32c_ref; each rank's step times beside those of B1, B2, B3, B5,
+     the CRC combine and its all_reduce alone at the rank's block
+ 20  graft_entry.entry()'s step on the card against the plain step
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
 route on the card.  Launch counts: the counters are set to 0 just before
-each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, and
-the bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
-launches would drown the codec paths' counts) and read just after; launches
+each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, the
+bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
+launches would drown the codec paths' counts, each mesh rank's one run of
+its steps in phase 19, summed over the ranks, and phase 20's step) and read
+just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -120,6 +136,11 @@ B3_GROUP_KS = (12, 31, 32)
 B6_SHAPES = (("64 x 4 MiB", CHUNK_BYTES),
              ("64 x (4 MiB - 5), rows unaligned", CHUNK_BYTES - 5),
              ("64 x 1 000 000 B, ragged first run", ODD_CHUNK))
+SORT_RECORDS = 1 << 24         # phase 18: one reduce partition, 1.68 GB of rows
+# phase 19: a 2 x 2 mesh (4 ranks) at the stripe bench's width, 24 stripes;
+# the word decode of a data and a parity shard, and of one data shard
+MESH_RANKS, MESH_DP, MESH_STRIPES = 4, 2, 24
+MESH_WANTS = ((0, 9), (3,))
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -1351,15 +1372,15 @@ def phase_byte_times(dev: torch.device, g: torch.Generator, b1: dict) -> dict:
 
 # --- phase 16: H1, the headline bench and the decode bench -------------------
 
-def run_captured(main, argv: list[str]) -> tuple[int, list[str]]:
-    """A bench's main(argv) in this process: its lines echoed under [16],
-    its exit code and its lines returned."""
+def run_captured(main, argv: list[str], phase: int = 16) -> tuple[int, list[str]]:
+    """A bench's main(argv) in this process: its lines echoed under the
+    phase's tag, its exit code and its lines returned."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(argv)
     lines = buf.getvalue().strip().splitlines()
     for line in lines:
-        log(f"[16] {line}")
+        log(f"[{phase}] {line}")
     return rc, lines
 
 
@@ -1440,6 +1461,152 @@ def phase_bench(dev: torch.device, g: torch.Generator) -> tuple[int, dict, dict]
     return e, t, launches
 
 
+# --- phase 18: the device sort ------------------------------------------------
+
+def phase_sort() -> None:
+    from t3fs_torch.benchmarks import sort_bench as sb
+    from t3fs_torch.ops.device_sort import KEY_LEN, lexsort_rows, make_device_sorter
+
+    rows = sb.gensort_rows(SORT_RECORDS)
+    res = sb.measure(rows)
+    log(f"[18] device sort of {SORT_RECORDS} gensort rows (seed {sb.SEED}), "
+        f"make_device_sorter and sort_columns both equal to lexsort_rows: sort "
+        f"{res['sort_ms']:.3f} ms, median of 5 (bound {res['bound_ms']:.3f} ms by "
+        f"bytes at 3.35 TB/s, {res['bound_ms'] / res['sort_ms'] * 100:.1f}% of it; "
+        f"{res['records_per_s'] / 1e6:.1f} M records/s, {res['key_MB_s']:.0f} key "
+        f"MB/s); H2D of the int64 columns {res['h2d_ms']:.3f} ms, D2H of the "
+        f"permutation {res['d2h_ms']:.3f} ms; host: columns "
+        f"{res['host_columns_ms']:.1f} ms, gather of the rows {res['gather_ms']:.1f} "
+        f"ms, np.lexsort {res['lexsort_ms']:.1f} ms; make_device_sorter end to end "
+        f"{res['sorter_wall_ms']:.1f} ms")
+    sort_perm = make_device_sorter()
+    ff = rows[:4096].copy()
+    ff[::3, :KEY_LEN] = 0xFF
+    for label, r in [(f"n={n}", rows[:n]) for n in (0, 1, 1023, 1025)] + [
+            ("4096 rows, every third key all 0xFF", ff)]:
+        perm = sort_perm(r)
+        expect(perm.dtype == (np.int64 if len(r) == 0 else np.int32)
+               and np.array_equal(perm, lexsort_rows(r)),
+               f"the device sort differs from lexsort_rows at {label}")
+    ff_rows = np.arange(0, len(ff), 3)
+    expect(np.array_equal(sort_perm(ff)[-len(ff_rows):], ff_rows),
+           "the all-0xFF keys must sort last, in row order")
+    log("[18] n = 0, 1, 1023, 1025 and 4096 rows with all-0xFF keys: equal to "
+        "lexsort_rows")
+    del rows, ff
+    rc, lines = run_captured(sb.main, ["--quick"], phase=18)
+    expect(rc == 0 and json.loads(lines[-1])["perm_equals_lexsort"],
+           f"the sort bench failed: {lines[-1]}")
+
+
+# --- phase 19: the codec mesh ---------------------------------------------------
+
+def phase_mesh(dev: torch.device) -> dict:
+    """The 2 x 2 mesh (4 ranks) at the stripe bench's width, every output
+    against the unsharded steps on the card, on graft_entry's backend for
+    the box's card count; logs each rank's step times beside its kernels'
+    and its CRC combine's alone; returns the ranks' summed launches of the
+    counted run."""
+    from t3fs_torch import graft_entry as ge
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.crc32c import crc32c_ref
+    from t3fs_torch.ops.rs import default_rs
+    from t3fs_torch.ops.torch_codec import make_rs_encode_matmul
+
+    rng = np.random.default_rng(SEED + 19)
+    stripes = rng.integers(0, 256, (MESH_STRIPES, K, SHARD_BYTES), dtype=np.uint8)
+    data63 = rng.integers(0, 256, (MESH_STRIPES, K63, SHARD_BYTES), dtype=np.uint8)
+    W = SHARD_BYTES // 4
+    x = torch.from_numpy(stripes.view(np.int32)).to(dev)
+    parity, crcs = cc.make_stripe_encode_step_words(W, device=dev)(x)
+    full = torch.cat([x, parity], dim=1)
+    ref = {"parity": parity.cpu().numpy().view(np.uint32),
+           "crcs": crcs.cpu().numpy().view(np.uint32)}
+    for want in MESH_WANTS:
+        present = ge.present_of(want, K, M)
+        rebuilt, rcrcs = cc.make_stripe_decode_step_words(W, present, want, device=dev)(
+            full[:, list(present)].contiguous())
+        ref[want] = (rebuilt.cpu().numpy().view(np.uint8),
+                     rcrcs[:, K:].cpu().numpy().view(np.uint32))
+    d63 = torch.from_numpy(data63).to(dev)
+    full63 = torch.cat([d63, make_rs_encode_matmul(default_rs(K63, M63), dev)(d63)],
+                       dim=1)
+    present63 = ge.present_of(ge.LOST63, K63, M63)
+    surv63 = full63[:, list(present63)].contiguous()
+    rebuilt63, c63 = cc.make_stripe_decode_step_bytes(
+        SHARD_BYTES, present63, ge.LOST63, K63, M63, dev)(surv63)
+    expect(torch.equal(rebuilt63, full63[:, list(ge.LOST63)]),
+           "the unsharded RS(6+3) decode does not give back the lost shards")
+    ref63 = (rebuilt63.cpu().numpy(), c63[:, K63:].cpu().numpy().view(np.uint32))
+    surv63 = surv63.cpu().numpy()
+    del x, parity, crcs, full, rebuilt, rcrcs, d63, full63, rebuilt63, c63
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = ge.run_mesh(MESH_RANKS, stripes, surv63, MESH_WANTS, dp=MESH_DP,
+                      device=dev, timed=True, timeout_s=600)
+    wall = time.perf_counter() - t0
+    log(f"[19] mesh dp x cp = {res['dp']} x {res['cp']}, {MESH_STRIPES} x RS({K}+{M}) "
+        f"stripes of {SHARD_BYTES >> 20} MiB shards: backend {res['backend']}, "
+        f"{res['ranks_per_card']} rank(s) a card on {torch.cuda.device_count()} "
+        f"card(s) in the box; spawn to join {wall:.1f} s")
+    out = res["outputs"]
+    pairs = [("enc_parity", ref["parity"].view(np.uint8)), ("enc_crcs", ref["crcs"]),
+             ("wenc_parity", ref["parity"]), ("wenc_crcs", ref["crcs"]),
+             ("wrec63", ref63[0]), ("wrec63_crcs", ref63[1])]
+    for want in MESH_WANTS:
+        t = ge.want_tag(want)
+        pairs += [(f"rec{t}", ref[want][0]), (f"rec{t}_crcs", ref[want][1]),
+                  (f"wrec{t}", ref[want][0]), (f"wrec{t}_crcs", ref[want][1])]
+    for name, want_arr in pairs:
+        expect(out[name].shape == want_arr.shape and np.array_equal(out[name], want_arr),
+               f"mesh output {name} differs from the unsharded step on the card")
+    spot = [(out["enc_crcs"][0, 0], stripes[0, 0]),
+            (out["wenc_crcs"][-1, K + 1], out["enc_parity"][-1, 1]),
+            (out[f"wrec{ge.want_tag(MESH_WANTS[0])}_crcs"][1, 0], stripes[1, MESH_WANTS[0][0]]),
+            (out["wrec63_crcs"][0, 0], out["wrec63"][0, 0])]
+    for crc, shard_bytes in spot:
+        expect(int(crc) == crc32c_ref(shard_bytes.tobytes()), "a mesh CRC != crc32c_ref")
+    log(f"[19] every parity byte, rebuilt byte and CRC of {len(pairs)} outputs (byte "
+        f"and word encode; byte and word decode of want {', '.join(map(str, MESH_WANTS))}; "
+        f"RS({K63}+{M63}) word decode of want {ge.LOST63}) equal to the unsharded "
+        f"steps on the card; {len(spot)} CRCs equal to crc32c_ref")
+    launches: dict[str, int] = {}
+    for r, meta in enumerate(res["ranks"]):
+        add_launches(launches, meta["launches"])
+        log(f"[19] rank {r} (dp {meta['dp_index']}, cp {meta['cp_index']}) on "
+            f"{meta['device']}, {res['backend']}, {res['ranks_per_card']} rank(s) a "
+            f"card, ms a call (CUDA events, 5 calls): " + ", ".join(
+                f"{name} {ms:.3f}" for name, ms in meta["ms"].items()))
+    log(f"[19] the ranks' launches in the counted run: {launches}")
+    for name in ("crc_words", "rs_raid6_words", "rs_reconstruct_words", "rs_bitmatmul"):
+        expect(launches.get(name, 0) > 0, f"the mesh did not launch {name}")
+    return launches
+
+
+# --- phase 20: the graft entry -----------------------------------------------
+
+def phase_entry(dev: torch.device) -> dict:
+    from t3fs_torch import graft_entry as ge
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.torch_codec import make_stripe_encode_step
+
+    fn, (words,) = ge.entry(dev)
+    cc.reset_launches()
+    parity, crcs = fn(words)
+    torch.cuda.synchronize()
+    launches = dict(cc.launches)
+    pparity, pcrcs = make_stripe_encode_step(words.shape[2] * 4, device=dev)(
+        words.view(torch.uint8))
+    e = max(max_abs_err(parity.view(torch.uint8), pparity), max_abs_err(crcs, pcrcs))
+    log(f"[20] graft_entry.entry() on {tuple(words.shape)} words: launches {launches}; "
+        f"parity and CRCs against the plain step: max_abs_err={e}")
+    expect(e == 0 and launches["crc_words"] > 0 and launches["rs_raid6_words"] > 0,
+           "entry() disagrees with the plain step or ran no kernel")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1483,6 +1650,9 @@ def main() -> int:
     byte_times = phase_byte_times(dev, g, times["crc_words"])
     e_copy, copy_times, bench_launches = phase_bench(dev, g)
     main_runs.append(bench_launches)
+    phase_sort()
+    main_runs.append(phase_mesh(dev))
+    main_runs.append(phase_entry(dev))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -48,13 +48,15 @@ def test_port_sources_name_no_jax_or_t3fs_module():
 
 
 def _entry_points():
-    from t3fs_torch import bench, resolve_device
-    from t3fs_torch.benchmarks import devbench
+    from t3fs_torch import bench, graft_entry, resolve_device
+    from t3fs_torch.benchmarks import devbench, sort_bench
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_codec import TorchECCodec
-    from t3fs_torch.ops import cuda_codec, msr_codec, tables, torch_codec
+    from t3fs_torch.ops import (
+        cuda_codec, device_sort, msr_codec, tables, torch_codec)
     from t3fs_torch.ops.msr import default_msr
     from t3fs_torch.ops.repair_program import xor_program
+    from t3fs_torch.parallel import codec_mesh
     from t3fs_torch.storage.codec_backend import (
         CudaChecksumBackend, make_checksum_backend)
 
@@ -108,14 +110,20 @@ def _entry_points():
         lambda: bench.measure(quick=True),
         lambda: ecb.decode_ops(8, 2, 4096, 1),
         lambda: ecb.decode_microbench(ecb.parse_args([])),
+        # the device sort, the codec mesh and the graft entry
+        device_sort.make_device_sorter,
+        lambda: sort_bench.main(["--quick"]),
+        graft_entry.entry,
+        lambda: graft_entry.dryrun_multichip(4),
+        codec_mesh.make_mesh,
     ]
 
 
-@pytest.mark.parametrize("i", range(44))
+@pytest.mark.parametrize("i", range(49))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 44
+    assert len(entries) == 49
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -152,3 +160,15 @@ def test_benches_fail_without_gpu_with_an_error_line(cmd, key):
     assert key in line and "device='cpu'" in line["error"]
     if key == "metric":
         assert line["metric"] == "rs8+2_crc32c_stripe_encode" and line["value"] == 0
+
+
+def test_sort_bench_cli_fails_without_gpu():
+    """Without a GPU `python -m ...sort_bench` exits non-zero before any
+    work and prints no result; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the command would run for real")
+    r = subprocess.run([sys.executable, "-m", "t3fs_torch.benchmarks.sort_bench",
+                        "--quick"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert "device='cpu'" in r.stderr and "{" not in r.stdout
