@@ -83,6 +83,19 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      crc32c_ref; each rank's step times beside those of B1, B2, B3, B5,
      the CRC combine and its all_reduce alone at the rank's block
  20  graft_entry.entry()'s step on the card against the plain step
+ 21  the CRAQ chain write (storage_bench's "CRAQ 3-replica chain write"):
+     the port's StorageFabric of 3 nodes and one 3-replica chain, a
+     CudaChecksumBackend per node on the card, the Python chunk engine,
+     StorageClient with inline transfers, 4 MiB chunks; write_file_range of
+     one seeded 512 MiB file, then phase 3's size mix through write_chunk
+     on fresh inodes (1 MiB and (129 << 10) + 3 B writes, 40 000 B writes
+     on the host path, appends through crc_combine, 1 MiB overwrites that
+     recompute the chunk CRC on the host); once with write_pipeline "off",
+     once with "overlap".  Every write is acked OK (the head's B1 CRC must
+     equal the client's host CRC), every byte reads back, every replica's
+     checksum equals the native host CRC of the expected bytes (full chunks
+     also plain B1 on the card), every replica commits, and each node
+     batched exactly its device-size updates; prints the wall and GB/s
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -90,8 +103,8 @@ route on the card.  Launch counts: the counters are set to 0 just before
 each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, the
 bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
 launches would drown the codec paths' counts, each mesh rank's one run of
-its steps in phase 19, summed over the ranks, and phase 20's step) and read
-just after; launches
+its steps in phase 19, summed over the ranks, phase 20's step and each
+pass of phase 21) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -116,6 +129,7 @@ K, M = 8, 2
 SHARD_BYTES = 1 << 20          # stripe write: 1 MiB shards, 12 stripes a step
 STRIPES = 12
 CHUNK_BYTES = 4 << 20          # storage write: 4 MiB chunks, 64 a batch
+CHAIN_FILE_BYTES = 512 << 20   # phase 21: one file, 128 chunks over 3 replicas
 CHUNKS = 64
 SUBSHARDS = 4                  # ec_client.subshard_r(1 MiB): 4 x 256 KiB reads
 LOST_CHUNKS = 24               # repair: 24 lost chunks -> 96 sub-shard repairs
@@ -1607,6 +1621,174 @@ def phase_entry(dev: torch.device) -> dict:
     return launches
 
 
+# --- phase 21: the CRAQ chain write ------------------------------------------
+
+def chain_mix(full_chunks: int) -> list[list[tuple]]:
+    """Phase 3's size mix through StorageClient.write_chunk, in rounds (each
+    round's writes run concurrently; a chunk's writes follow its rounds):
+    (inode, chunk index, offset, length).  Inode 2: 1 MiB writes, then
+    appends of 1 MiB, (129 << 10) + 3 and 40 000 B (crc_combine), then 1 MiB
+    overwrites inside them; inode 3: (129 << 10) + 3 B writes; inode 4:
+    40 000 B writes (the host path); then 1 MiB overwrites inside the big
+    file's full chunks (inode 1), which recompute the chunk CRC on the host."""
+    mib, odd = 1 << 20, (129 << 10) + 3
+    return [
+        [(2, i, 0, mib) for i in range(8)] + [(3, i, 0, odd) for i in range(4)]
+        + [(4, i, 0, 40_000) for i in range(4)],
+        [(2, i, mib, mib) for i in range(8)],
+        [(2, i, 2 * mib, odd) for i in range(8)],
+        [(2, i, 2 * mib + odd, 40_000) for i in range(8)],
+        [(2, i, mib // 2, mib) for i in range(8)]
+        + [(1, i, mib + 4096 * i, mib) for i in range(min(8, full_chunks))],
+    ]
+
+
+async def phase_chain(dev: torch.device, pipeline: str, file_bytes: int,
+                      chunk_bytes: int) -> dict:
+    """One pass of the CRAQ 3-replica chain write through the port's entry
+    points: StorageFabric(3 nodes, 3 replicas), a CudaChecksumBackend per
+    node on `dev`, the Python engine, `pipeline`, StorageClient with inline
+    transfers.  write_file_range of one seeded file, then chain_mix on
+    fresh inodes; every byte read back; every replica's ChunkMeta against
+    the native host CRC of the expected bytes (and full chunks against
+    plain B1 on the card), update_ver == commit_ver; each node's backend
+    batched exactly its device-size updates.  Returns the pass's launches."""
+    from t3fs_torch.client.layout import FileLayout
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.ops import codec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.codec_backend import (
+        DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
+    from t3fs_torch.storage.types import ChunkId
+    from t3fs_torch.testing.fabric import StorageFabric
+
+    expect(codec.host_impl() == "native", "the native host CRC did not build")
+    rng = np.random.default_rng(SEED + 21)
+    data = rng.bytes(file_bytes)
+    fabric = StorageFabric(num_nodes=3, replicas=3,
+                           checksum_backend=lambda: CudaChecksumBackend(device=dev),
+                           write_pipeline=pipeline)
+    await fabric.start()
+    sc = StorageClient(lambda: fabric.routing, client=fabric.client)
+    try:
+        lay = FileLayout(chunk_size=chunk_bytes, chains=[fabric.chain_id])
+        big_chunks = -(-file_bytes // chunk_bytes)
+        mix = chain_mix(file_bytes // chunk_bytes)
+        sizes = sorted({chunk_bytes, *(n for rnd in mix for *_, n in rnd)})
+        for node in fabric.nodes:
+            await asyncio.to_thread(node.codec.warmup,
+                                    [n for n in sizes if n >= DEFAULT_MIN_DEVICE_BYTES])
+
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        results = await sc.write_file_range(lay, inode=1, offset=0, data=data)
+        wall = time.perf_counter() - t0
+        launches_file = cc.launches["crc_words"]
+        expect(all(r.status.code == 0 for r in results),
+               f"[21] a chunk write failed: {[r.status for r in results if r.status.code][:3]}")
+        t1 = time.perf_counter()
+        expected = {(1, i): bytearray(data[i * chunk_bytes:(i + 1) * chunk_bytes])
+                    for i in range(big_chunks)}
+        updates = [len(p) for p in (expected[k] for k in sorted(expected))]
+        for rnd in mix:
+            payloads = [rng.bytes(n) for *_, n in rnd]
+            res = await asyncio.gather(*(
+                sc.write_chunk(fabric.chain_id, ChunkId(inode, idx), off, p,
+                               chunk_size=chunk_bytes)
+                for (inode, idx, off, _), p in zip(rnd, payloads)))
+            expect(all(r.status.code == 0 for r in res),
+                   f"[21] a mix write failed: {[r.status for r in res if r.status.code][:3]}")
+            for (inode, idx, off, n), p in zip(rnd, payloads):
+                buf = expected.setdefault((inode, idx), bytearray())
+                if len(buf) < off:
+                    buf.extend(bytes(off - len(buf)))
+                buf[off:off + n] = p
+                updates.append(n)
+        mix_wall = time.perf_counter() - t1
+        launches = dict(cc.launches)
+
+        # the client's checksums alone, on the native host CRC
+        t2 = time.perf_counter()
+        for i in range(big_chunks):
+            codec.crc32c(memoryview(data)[i * chunk_bytes:(i + 1) * chunk_bytes])
+        host_crc_s = time.perf_counter() - t2
+
+        got, _ = await sc.read_file_range(lay, 1, 0, file_bytes)
+        expect(got == b"".join(expected[(1, i)] for i in range(big_chunks)),
+               "[21] the file read back differs")
+        for inode in (2, 3, 4):
+            keys = sorted(k for k in expected if k[0] == inode)
+            for (_, idx) in keys:
+                got, _ = await sc.read_file_range(lay, inode, idx * chunk_bytes,
+                                                  len(expected[(inode, idx)]))
+                expect(got == expected[(inode, idx)],
+                       f"[21] inode {inode} chunk {idx} read back differs")
+
+        want_crc = {k: codec.crc32c(bytes(v)) for k, v in expected.items()}
+        full = [k for k, v in sorted(expected.items()) if len(v) == chunk_bytes]
+        b1 = dict(zip(full, plain_crcs([bytes(expected[k]) for k in full], dev)))
+        for i, node in enumerate(fabric.nodes):
+            engine = node.targets[fabric.target_id(i)].engine
+            for (inode, idx), crc in want_crc.items():
+                meta = engine.get_meta(ChunkId(inode, idx))
+                expect(meta is not None and meta.checksum == crc
+                       and b1.get((inode, idx), crc) == crc,
+                       f"[21] node {i + 1} chunk {inode}.{idx}: stored "
+                       f"{meta and meta.checksum:#x} != native {crc:#x}")
+                expect(meta.update_ver == meta.commit_ver
+                       and meta.length == len(expected[(inode, idx)]),
+                       f"[21] node {i + 1} chunk {inode}.{idx} not committed")
+            for (inode, idx) in [(1, 0), (2, 0), (4, 0)]:
+                expect(engine.read(ChunkId(inode, idx)) == expected[(inode, idx)],
+                       f"[21] node {i + 1} holds other bytes for {inode}.{idx}")
+        device_updates = sum(n >= DEFAULT_MIN_DEVICE_BYTES for n in updates)
+        per_node = [(n.codec.batches, n.codec.batched_items) for n in fabric.nodes]
+        log(f"[21] CRAQ chain write, write_pipeline={pipeline}: {file_bytes >> 20} MiB "
+            f"file in {big_chunks} x {chunk_bytes >> 20} MiB chunks over 3 replicas, "
+            f"wall {wall:.3f} s: {file_bytes / wall / 1e9:.3f} GB/s of client bytes, "
+            f"{3 * file_bytes / wall / 1e9:.3f} GB/s replicated (host clock); "
+            f"B1 launches {launches_file} for the file, {launches['crc_words']} with "
+            f"the mix ({sum(len(r) for r in mix)} write_chunk in {len(mix)} rounds, "
+            f"{mix_wall:.3f} s); the client's native host CRC of the file alone "
+            f"{host_crc_s:.3f} s ({host_crc_s / wall * 100:.1f}% of the wall)")
+        log(f"[21] per node (B1 batches, items, items per batch): " + ", ".join(
+            f"n{i + 1} {b}, {it}, {it / max(b, 1):.1f}" for i, (b, it) in enumerate(per_node))
+            + f"; device-size updates {device_updates}; every byte read back, every "
+            f"replica's checksum equal to the native host CRC ({len(want_crc)} chunks) "
+            f"and to plain B1 ({len(full)} full chunks), update_ver == commit_ver")
+        expect(all(it == device_updates for _, it in per_node),
+               f"[21] batched items {per_node} != device-size updates {device_updates}")
+        expect(launches["crc_words"] > 0 or dev.type != "cuda",
+               "[21] the chain write launched no B1")
+        return launches
+    finally:
+        await sc.close()
+        await fabric.stop()
+
+
+def chain_device_times(dev: torch.device, chunk_bytes: int) -> dict:
+    """What one chain hop puts on the card for a 4 MiB payload, each part
+    timed alone with CUDA events: B1 on one row (the batch the chain's
+    backend launched) and the pinned H2D copy of the payload."""
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.tables import codec_tables
+
+    cw = chunk_bytes // 4
+    tables = codec_tables(cw // 128, device=dev)
+    host = torch.empty((1, cw), dtype=torch.int32, pin_memory=True)
+    host.copy_(torch.randint(-2**31, 2**31, (1, cw), dtype=torch.int32))
+    words = host.to(dev)
+    b1 = kernel_times(lambda: cc.crc_words_raw(words, tables))
+    h2d = kernel_times(lambda: words.copy_(host, non_blocking=True))
+    bound = chunk_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[21] alone, CUDA events, median of {REPEATS} (min, max): B1 on (1, {cw}) = "
+        f"one 4 MiB row {b1['ms'] * 1e3:.1f} us ({b1['min_ms'] * 1e3:.1f}, "
+        f"{b1['max_ms'] * 1e3:.1f}; bound {bound * 1e3:.2f} us by bytes); pinned H2D "
+        f"of 4 MiB {h2d['ms'] * 1e3:.1f} us ({h2d['min_ms'] * 1e3:.1f}, "
+        f"{h2d['max_ms'] * 1e3:.1f})")
+    return {"b1_ms": b1["ms"], "h2d_ms": h2d["ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1623,6 +1805,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[0] kernel build: {time.perf_counter() - t0:.1f} s")
+    from t3fs_torch.ops.codec import host_impl
+    t0 = time.perf_counter()
+    expect(host_impl() == "native", "the native host CRC (csrc/host_crc32c.cc) "
+           "did not build or failed its self-check")
+    log(f"[0] native host CRC (host_crc32c.cc, g++): {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"[0] nvcc {name}: {line.strip()}")
@@ -1653,6 +1840,10 @@ def main() -> int:
     phase_sort()
     main_runs.append(phase_mesh(dev))
     main_runs.append(phase_entry(dev))
+    for pipeline in ("off", "overlap"):
+        main_runs.append(asyncio.run(
+            phase_chain(dev, pipeline, CHAIN_FILE_BYTES, CHUNK_BYTES)))
+    chain_device_times(dev, CHUNK_BYTES)
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

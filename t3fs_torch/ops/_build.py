@@ -5,7 +5,8 @@ interface, compiled for sm_90a at first use into t3fs_torch/_build/ (listed
 in .gitignore), under a name keyed by a hash of the source, the shared
 headers and the flags, so an edited source or header rebuilds and an
 unchanged one loads.  All missing libraries compile in parallel, one nvcc
-each.  Nothing here runs at import.
+each.  The host CRC (csrc/host_crc32c.cc) is built the same way by the host
+compiler (host_library).  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -23,6 +25,10 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17",
+                  *(("-msse4.2",) if platform.machine() in ("x86_64", "AMD64")
+                    else ()))
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -129,3 +135,37 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc:
         msg = lib.t3fs_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def _host_target(name: str) -> Path:
+    h = hashlib.sha256((SRC_DIR / f"{name}.cc").read_bytes())
+    h.update(" ".join(HOST_CXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cc, built first by the host C++
+    compiler if needed (raises RuntimeError where there is none)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            out = _host_target(name)
+            if not out.exists():
+                cxx = os.environ.get("CXX") or shutil.which("g++") \
+                    or shutil.which("c++")
+                if cxx is None:
+                    raise RuntimeError("no host C++ compiler (g++, c++, $CXX)")
+                BUILD_DIR.mkdir(exist_ok=True)
+                tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
+                proc = subprocess.run(
+                    [cxx, *HOST_CXX_FLAGS, "-o", str(tmp),
+                     str(SRC_DIR / f"{name}.cc")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                build_logs[name] = proc.stdout
+                if proc.returncode:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"{name}.cc (rc={proc.returncode}):\n"
+                                       f"{proc.stdout}")
+                os.replace(tmp, out)
+            lib = _libs[name] = ctypes.CDLL(str(out))
+        return lib

@@ -26,6 +26,8 @@ bad = sorted(m for m in sys.modules
              or m.startswith("t3fs."))
 print(len(mods), bad)
 assert not bad, bad
+for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils"):
+    assert f"t3fs_torch.{pkg}" in mods, pkg
 """
 
 
@@ -34,7 +36,7 @@ def test_port_imports_no_jax_and_no_t3fs():
     r = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[0]) >= 16      # every module was imported
+    assert int(r.stdout.split()[0]) >= 50      # every module was imported
 
 
 def test_port_sources_name_no_jax_or_t3fs_module():
@@ -47,7 +49,28 @@ def test_port_sources_name_no_jax_or_t3fs_module():
                     f"{path}: {s}"
 
 
+async def _default_fabric(client_writes: bool = False):
+    """A storage fabric (and a client writing through it) on the defaults:
+    its nodes' checksum backend is the CUDA one, so start() raises."""
+    from t3fs_torch.client.layout import FileLayout
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.testing.fabric import StorageFabric
+
+    fabric = StorageFabric(num_nodes=1, replicas=1)
+    try:
+        await fabric.start()
+        if client_writes:
+            sc = StorageClient(lambda: fabric.routing, client=fabric.client)
+            await sc.write_file_range(
+                FileLayout(chunk_size=1 << 20, chains=[fabric.chain_id]),
+                inode=1, offset=0, data=b"x" * (1 << 20))
+    finally:
+        await fabric.stop()
+
+
 def _entry_points():
+    import asyncio
+
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import devbench, sort_bench
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
@@ -59,6 +82,7 @@ def _entry_points():
     from t3fs_torch.parallel import codec_mesh
     from t3fs_torch.storage.codec_backend import (
         CudaChecksumBackend, make_checksum_backend)
+    from t3fs_torch.storage.service import StorageNode
 
     return [
         resolve_device,
@@ -116,14 +140,18 @@ def _entry_points():
         graft_entry.entry,
         lambda: graft_entry.dryrun_multichip(4),
         codec_mesh.make_mesh,
+        # the CRAQ chain: storage node, fabric, and a client writing to it
+        lambda: StorageNode(1, lambda: None, None),
+        lambda: asyncio.run(_default_fabric()),
+        lambda: asyncio.run(_default_fabric(client_writes=True)),
     ]
 
 
-@pytest.mark.parametrize("i", range(49))
+@pytest.mark.parametrize("i", range(52))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 49
+    assert len(entries) == 52
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -172,3 +200,20 @@ def test_sort_bench_cli_fails_without_gpu():
                        timeout=120)
     assert r.returncode != 0
     assert "device='cpu'" in r.stderr and "{" not in r.stdout
+
+
+def test_port_refuses_what_it_has_not_ported(tmp_path):
+    """The native chunk engine, the io_uring read worker and the ring data
+    plane are not ported: asking for one raises, never runs another."""
+    from t3fs_torch.client.storage_client import (
+        StorageClient, StorageClientConfig)
+    from t3fs_torch.storage.chunk_engine import make_engine
+    from t3fs_torch.testing.fabric import StorageFabric
+
+    with pytest.raises(ValueError, match="A12d"):
+        make_engine(str(tmp_path), backend="native")
+    with pytest.raises(ValueError, match="A12d"):
+        StorageFabric(num_nodes=1, replicas=1, aio_read=True)
+    with pytest.raises(ValueError, match="ring"):
+        StorageClient(lambda: None,
+                      config=StorageClientConfig(data_plane="ring"))
