@@ -85,8 +85,9 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
  20  graft_entry.entry()'s step on the card against the plain step
  21  the CRAQ chain write (storage_bench's "CRAQ 3-replica chain write"):
      the port's StorageFabric of 3 nodes and one 3-replica chain, a
-     CudaChecksumBackend per node on the card, the Python chunk engine,
-     StorageClient with inline transfers, 4 MiB chunks; write_file_range of
+     CudaChecksumBackend per node on the card, the fabric's defaults (the
+     native chunk engine, every target checked to be one, and io_uring
+     reads), StorageClient with inline transfers, 4 MiB chunks; write_file_range of
      one seeded 512 MiB file, then phase 3's size mix through write_chunk
      on fresh inodes (1 MiB and (129 << 10) + 3 B writes, 40 000 B writes
      on the host path, appends through crc_combine, 1 MiB overwrites that
@@ -96,6 +97,26 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      checksum equals the native host CRC of the expected bytes (full chunks
      also plain B1 on the card), every replica commits, and each node
      batched exactly its device-size updates; prints the wall and GB/s
+ 22  the EC stripe path (BASELINE.json configs #3 and #4): the port's
+     StorageFabric of 5 nodes and 10 one-replica chains (two a node), a
+     CudaChecksumBackend per node on the card, the native engine (every
+     target checked) and io_uring reads, StorageClient and ECStorageClient
+     over TorchECCodec; RS(8+2) at 1 MiB: 64 seeded stripes written 16 in
+     flight (B2 + B1), read back healthy, every chunk of one chain removed
+     and all 64 read degraded (B3 + B1), RepairDriver(concurrency=8) over
+     the losses on the sub-shard path (B4 + B1), every stripe read back;
+     then 8 stripes each of pm-msr (write, one-loss repair_stripe, two-loss
+     read), RS(6+3) (write B5 + B6, read losing three shards, repair) and
+     lrc-xor (6+2, groups of 4: write, a local-group repair), one RS(8+2)
+     stripe ending mid-chunk (its trimmed tail's CRC on the host); last one
+     node's server stops (two chains, the m = 2 limit) and 16 stripes read
+     degraded.  Every byte against the written data, every returned CRC
+     and every repaired chunk's stored checksum against plain B1 and the
+     native host CRC, RepairDriver all on the reduced path, every codec
+     route a cuda-* one; prints the walls, GB/s of data (write, degraded
+     read) and of rebuilt and helper bytes (repair), codec flushes and
+     items per flush, each node's B1 batches and items and io_uring reads,
+     and the phase's launches
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -103,8 +124,9 @@ route on the card.  Launch counts: the counters are set to 0 just before
 each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, the
 bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
 launches would drown the codec paths' counts, each mesh rank's one run of
-its steps in phase 19, summed over the ranks, phase 20's step and each
-pass of phase 21) and read just after; launches
+its steps in phase 19, summed over the ranks, phase 20's step, each
+pass of phase 21 and each step of phase 22, its warmups excepted) and read
+just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -155,6 +177,13 @@ SORT_RECORDS = 1 << 24         # phase 18: one reduce partition, 1.68 GB of rows
 # the word decode of a data and a parity shard, and of one data shard
 MESH_RANKS, MESH_DP, MESH_STRIPES = 4, 2, 24
 MESH_WANTS = ((0, 9), (3,))
+# phase 22: 64 RS(8+2) stripes of 8 x 1 MiB (512 MiB of data), 16 calls in
+# flight; 8 stripes each of pm-msr, RS(6+3) and lrc-xor; 16 reads after a
+# node's server stops
+EC_STRIPES = 64
+EC_INFLIGHT = 16
+EC_SMALL_STRIPES = 8
+EC_NODE_LOSS_READS = 16
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -1647,8 +1676,8 @@ async def phase_chain(dev: torch.device, pipeline: str, file_bytes: int,
                       chunk_bytes: int) -> dict:
     """One pass of the CRAQ 3-replica chain write through the port's entry
     points: StorageFabric(3 nodes, 3 replicas), a CudaChecksumBackend per
-    node on `dev`, the Python engine, `pipeline`, StorageClient with inline
-    transfers.  write_file_range of one seeded file, then chain_mix on
+    node on `dev`, the fabric's default native engine and io_uring reads,
+    `pipeline`, StorageClient with inline transfers.  write_file_range of one seeded file, then chain_mix on
     fresh inodes; every byte read back; every replica's ChunkMeta against
     the native host CRC of the expected bytes (and full chunks against
     plain B1 on the card), update_ver == commit_ver; each node's backend
@@ -1659,6 +1688,7 @@ async def phase_chain(dev: torch.device, pipeline: str, file_bytes: int,
     from t3fs_torch.ops import cuda_codec as cc
     from t3fs_torch.storage.codec_backend import (
         DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
+    from t3fs_torch.storage.native_engine import NativeChunkEngine
     from t3fs_torch.storage.types import ChunkId
     from t3fs_torch.testing.fabric import StorageFabric
 
@@ -1671,6 +1701,13 @@ async def phase_chain(dev: torch.device, pipeline: str, file_bytes: int,
     await fabric.start()
     sc = StorageClient(lambda: fabric.routing, client=fabric.client)
     try:
+        engines = [type(t.engine).__name__ for n in fabric.nodes
+                   for t in n.targets.values()]
+        log(f"[21] write_pipeline={pipeline}: target engines {engines}, io_uring "
+            f"worker on nodes {[n.node_id for n in fabric.nodes if n.aio is not None]}")
+        expect(all(isinstance(t.engine, NativeChunkEngine) for n in fabric.nodes
+                   for t in n.targets.values()),
+               f"[21] a target is not on the native engine: {engines}")
         lay = FileLayout(chunk_size=chunk_bytes, chains=[fabric.chain_id])
         big_chunks = -(-file_bytes // chunk_bytes)
         mix = chain_mix(file_bytes // chunk_bytes)
@@ -1789,6 +1826,369 @@ def chain_device_times(dev: torch.device, chunk_bytes: int) -> dict:
     return {"b1_ms": b1["ms"], "h2d_ms": h2d["ms"]}
 
 
+# --- phase 22: the EC stripe path end to end ----------------------------------
+
+def ec_target_engine(fabric, chain_id: int):
+    """The engine of a one-replica chain's target."""
+    t = fabric.routing.chains[chain_id].targets[0]
+    return fabric.nodes[t.node_id - 1].targets[t.target_id].engine
+
+
+async def ec_remove(fabric, lay, inode: int, stripe: int, slot: int) -> None:
+    """Remove one shard's chunk through Storage.remove_chunks at its chain's
+    head (tests/test_torch_ec_client.py's _remove_shard)."""
+    from t3fs_torch.storage.types import RemoveChunksReq
+
+    chain_id = lay.shard_chain(stripe, slot)
+    cid = lay.shard_chunk(inode, stripe, slot)
+    head = fabric.routing.chains[chain_id].head()
+    await fabric.client.call(
+        fabric.routing.node_address(head.node_id), "Storage.remove_chunks",
+        RemoveChunksReq(chain_id=chain_id, inode=cid.inode,
+                        begin_index=cid.index, end_index=cid.index + 1))
+
+
+async def limited(n: int, coros) -> list:
+    """Await the coroutines with at most n in flight, results in order."""
+    sem = asyncio.Semaphore(n)
+
+    async def one(c):
+        async with sem:
+            return await c
+    return await asyncio.gather(*(one(c) for c in coros))
+
+
+def ec_ok(results) -> bool:
+    return all(r.status.code == 0 for r in results)
+
+
+async def ec_read_all(ec, lay, inode: int, stripes, stripe_len: int,
+                      data: np.ndarray, want_crc: np.ndarray, tag: str) -> None:
+    """read_stripe_with_crcs of `stripes`, EC_INFLIGHT in flight: every byte
+    against the written data, every returned CRC against plain B1."""
+    outs = await limited(EC_INFLIGHT, (ec.read_stripe_with_crcs(
+        lay, inode, s, stripe_len) for s in stripes))
+    for s, (got, crcs) in zip(stripes, outs):
+        expect(got == data[s].tobytes()[:stripe_len],
+               f"[22] {tag}: stripe {s} read back differs")
+        expect(crcs == [int(c) for c in want_crc[s]],
+               f"[22] {tag}: stripe {s} CRCs {crcs} != plain B1 {want_crc[s].tolist()}")
+
+
+def ec_check_repaired(fabric, lay, inode: int, lost: dict, data: np.ndarray,
+                      want_crc: np.ndarray, tag: str) -> None:
+    """Every repaired chunk committed, its stored bytes equal to the written
+    chunk and its ChunkMeta.checksum to the native host CRC of them; a data
+    chunk's checksum also equal to plain B1 of the written chunk, an RS
+    parity chunk's bytes to the plain encode (RSCode.encode_ref) of data[s]."""
+    from t3fs_torch.ops import codec
+    from t3fs_torch.ops.rs import default_rs
+
+    k = lay.k
+    rs = default_rs(k, lay.m)
+    for s, slots in lost.items():
+        parity = None
+        for slot in slots:
+            engine = ec_target_engine(fabric, lay.shard_chain(s, slot))
+            cid = lay.shard_chunk(inode, s, slot)
+            meta = engine.get_meta(cid)
+            if slot < k:
+                want = data[s, slot].tobytes()
+            else:
+                expect(not lay.local_scheme and slot < k + lay.m,
+                       f"[22] {tag}: slot {slot} is not an RS parity slot")
+                if parity is None:
+                    parity = rs.encode_ref(data[s])
+                want = parity[slot - k].tobytes()
+            crc = codec.crc32c(want)
+            expect(meta is not None and meta.checksum == crc
+                   and meta.update_ver == meta.commit_ver
+                   and (slot >= k or crc == int(want_crc[s, slot])),
+                   f"[22] {tag}: repaired stripe {s} slot {slot}: {meta} "
+                   f"!= native {crc:#x}")
+            expect(engine.read(cid) == want,
+                   f"[22] {tag}: repaired stripe {s} slot {slot}: stored bytes differ")
+
+
+async def phase_ec_stripes(dev: torch.device, chunk_bytes: int = SHARD_BYTES,
+                           stripes: int = EC_STRIPES,
+                           small: int = EC_SMALL_STRIPES,
+                           loss_reads: int = EC_NODE_LOSS_READS) -> dict:
+    """The EC stripe path through the port's entry points: StorageFabric(5
+    nodes, 10 one-replica chains, two a node), a CudaChecksumBackend per
+    node on `dev`, the native engine and io_uring reads (the defaults),
+    StorageClient, ECStorageClient over TorchECCodec(device=dev).  RS(8+2)
+    at `chunk_bytes`: `stripes` seeded stripes written EC_INFLIGHT in
+    flight, read back healthy; every chunk of one chain removed and every
+    stripe read degraded; RepairDriver(concurrency=8) over those losses on
+    the sub-shard path, every stripe read back; then `small` stripes each
+    of pm-msr (8+2: write, one-loss repair_stripe, two-loss read), RS(6+3)
+    (write, degraded read, repair) and lrc-xor (6+2, groups of 4: write, a
+    local-group repair), one RS(8+2) stripe ending mid-chunk (its trimmed
+    tail on the host CRC); last one node's server stops (two chains, the
+    m = 2 limit) and `loss_reads` stripes read degraded.  Every byte and
+    CRC against the data and plain B1; returns the phase's launches."""
+    from t3fs_torch.client.ec_client import ECLayout, ECStorageClient, RepairIOStats
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.client.repair import RepairDriver, RepairJob
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.ops import codec as host
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.codec_backend import (
+        DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
+    from t3fs_torch.storage.native_engine import NativeChunkEngine
+    from t3fs_torch.testing.fabric import StorageFabric
+
+    cs = chunk_bytes
+    rng = np.random.default_rng(SEED + 22)
+    fabric = StorageFabric(num_nodes=5, replicas=1, num_chains=10,
+                           checksum_backend=lambda: CudaChecksumBackend(device=dev))
+    await fabric.start()
+    sc = StorageClient(lambda: fabric.routing, client=fabric.client)
+    codec = TorchECCodec(device=dev)
+    ec = ECStorageClient(sc, codec=codec)
+    try:
+        engines = [(n.node_id, tid, type(t.engine).__name__)
+                   for n in fabric.nodes for tid, t in sorted(n.targets.items())]
+        log(f"[22] targets (node, target, engine): {engines}; io_uring worker "
+            f"on nodes {[n.node_id for n in fabric.nodes if n.aio is not None]}")
+        expect(all(isinstance(t.engine, NativeChunkEngine)
+                   for n in fabric.nodes for t in n.targets.values()),
+               f"[22] a target is not on the native engine: {engines}")
+        lay = ECLayout.create(k=K, m=M, chunk_size=cs, chains=fabric.chain_ids)
+        driver = RepairDriver(ec, concurrency=8)
+        # the builds (tables, first launches) off the timed path
+        for node in fabric.nodes:
+            await asyncio.to_thread(node.codec.warmup,
+                                    [n for n in (cs,) if n >= DEFAULT_MIN_DEVICE_BYTES])
+        codec.warmup_decode([(tuple(range(1, K + 1)), (0,)),
+                             ((0, 2, 3, 4, 5, 7, 8, 9), (1, 6))], cs, K, M)
+        await driver.warmup([lay])
+        data = rng.integers(0, 256, (stripes, K, cs), dtype=np.uint8)
+        want_crc = plain_shard_crcs(data, dev)
+        total = {}
+        inode = 1
+
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        res = await limited(EC_INFLIGHT, (ec.write_stripe(lay, inode, s, data[s].tobytes())
+                                          for s in range(stripes)))
+        w_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+        w_launches = dict(cc.launches)
+        expect(all(ec_ok(r) for r in res), "[22] a stripe write failed")
+        w_flush = (codec.flushes, codec.batched_items)
+
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        await ec_read_all(ec, lay, inode, range(stripes), K * cs, data, want_crc,
+                          "healthy read")
+        h_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+
+        dead = fabric.chain_ids[0]
+        losses = {s: tuple(sl for sl in range(K + M) if lay.shard_chain(s, sl) == dead)
+                  for s in range(stripes)}
+        for s, slots in losses.items():
+            for sl in slots:
+                await ec_remove(fabric, lay, inode, s, sl)
+        n_lost = sum(map(len, losses.values()))
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        await ec_read_all(ec, lay, inode, range(stripes), K * cs, data, want_crc,
+                          f"degraded read, chain {dead} lost")
+        d_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+        d_launches = dict(cc.launches)
+
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        report = await driver.run([RepairJob(
+            layout=lay, inode=inode, stripe_len_of={s: K * cs for s in range(stripes)},
+            losses=losses)])
+        r_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+        r_launches = dict(cc.launches)
+        expect(not report.failed and report.repaired_shards == n_lost,
+               f"[22] repair: {report}")
+        expect(report.reduced_shards == n_lost and report.fallback_shards == 0,
+               f"[22] repair took the full-k fallback: {report}")
+        ec_check_repaired(fabric, lay, inode, losses, data, want_crc, "RepairDriver")
+        cc.reset_launches()
+        await ec_read_all(ec, lay, inode, range(stripes), K * cs, data, want_crc,
+                          "read after repair")
+        add_launches(total, cc.launches)
+
+        data_bytes = stripes * K * cs
+        log(f"[22] RS({K}+{M}) at {cs >> 10} KiB chunks, {stripes} stripes "
+            f"({data_bytes >> 20} MiB of data, {stripes * (K + M) * cs >> 20} MiB "
+            f"stored), {EC_INFLIGHT} calls in flight (host clock): write "
+            f"{w_wall:.3f} s, {data_bytes / w_wall / 1e9:.3f} GB/s of data; healthy "
+            f"read {h_wall:.3f} s, {data_bytes / h_wall / 1e9:.3f} GB/s; degraded "
+            f"read (chain {dead} lost, {n_lost} shards) {d_wall:.3f} s, "
+            f"{data_bytes / d_wall / 1e9:.3f} GB/s of data; RepairDriver "
+            f"(concurrency 8, subshard) {r_wall:.3f} s: {report.bytes_repaired / r_wall / 1e9:.3f} "
+            f"GB/s rebuilt, {report.bytes_read / r_wall / 1e9:.3f} GB/s of helper "
+            f"bytes ({report.bytes_read / 2**20:.1f} MiB read for "
+            f"{report.bytes_repaired / 2**20:.1f} MiB, {report.sub_reads} sub-reads, "
+            f"reduced {report.reduced_shards}, fallback {report.fallback_shards}, "
+            f"chain reads {report.min_chain_reads}..{report.max_chain_reads})")
+        log(f"[22] launches: write {w_launches}; degraded read {d_launches}; "
+            f"repair {r_launches}; codec flushes and items after the write "
+            f"{w_flush[0]}, {w_flush[1]} ({w_flush[1] / max(w_flush[0], 1):.2f} a flush)")
+
+        # pm-msr (8+2): write, one-loss projection repair, two-loss read
+        small_data = rng.integers(0, 256, (small, K, cs), dtype=np.uint8)
+        small_crc = plain_shard_crcs(small_data, dev)
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        msr = ECLayout.create(k=K, m=M, chunk_size=cs, chains=fabric.chain_ids,
+                              local_scheme="pm-msr")
+        res = await limited(EC_INFLIGHT, (ec.write_stripe(msr, 2, s, small_data[s].tobytes())
+                                          for s in range(small)))
+        expect(all(ec_ok(r) for r in res), "[22] a pm-msr write failed")
+        stats = RepairIOStats()
+        for s in range(small):
+            await ec_remove(fabric, msr, 2, s, 3)
+        res = await limited(EC_INFLIGHT, (ec.repair_stripe(msr, 2, s, (3,), K * cs, stats=stats)
+                                          for s in range(small)))
+        expect(all(ec_ok(r) for r in res) and stats.reduced_shards == small
+               and stats.fallback_shards == 0, f"[22] pm-msr repair: {stats}")
+        ec_check_repaired(fabric, msr, 2, {s: (3,) for s in range(small)},
+                          small_data, small_crc, "pm-msr repair")
+        for s in range(small):
+            for sl in (1, 8):
+                await ec_remove(fabric, msr, 2, s, sl)
+        await ec_read_all(ec, msr, 2, range(small), K * cs, small_data, small_crc,
+                          "pm-msr two-loss read")
+        msr_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+
+        # RS(6+3): write (B5 + B6), degraded read, repair
+        d63 = rng.integers(0, 256, (small, K63, cs), dtype=np.uint8)
+        c63 = plain_shard_crcs(d63, dev)
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        rs63 = ECLayout.create(k=K63, m=M63, chunk_size=cs, chains=fabric.chain_ids)
+        res = await limited(EC_INFLIGHT, (ec.write_stripe(rs63, 3, s, d63[s].tobytes())
+                                          for s in range(small)))
+        expect(all(ec_ok(r) for r in res), "[22] an RS(6+3) write failed")
+        for s in range(small):
+            for sl in (0, 4, 7):
+                await ec_remove(fabric, rs63, 3, s, sl)
+        await ec_read_all(ec, rs63, 3, range(small), K63 * cs, d63, c63,
+                          "RS(6+3) read, 3 lost")
+        stats63 = RepairIOStats()
+        res = await limited(EC_INFLIGHT, (ec.repair_stripe(rs63, 3, s, (0, 4, 7), K63 * cs,
+                                                           stats=stats63)
+                                          for s in range(small)))
+        expect(all(ec_ok(r) for r in res), f"[22] RS(6+3) repair: {stats63}")
+        ec_check_repaired(fabric, rs63, 3, {s: (0, 4, 7) for s in range(small)},
+                          d63, c63, "RS(6+3) repair")
+        rs63_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+
+        # lrc-xor (6+2, groups of 4): write, then a local-group repair
+        lrc = ECLayout.create(k=6, m=2, chunk_size=cs, chains=fabric.chain_ids,
+                              local_scheme="lrc-xor", local_group_size=4)
+        dl = rng.integers(0, 256, (small, 6, cs), dtype=np.uint8)
+        cl = plain_shard_crcs(dl, dev)
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        res = await limited(EC_INFLIGHT, (ec.write_stripe(lrc, 4, s, dl[s].tobytes())
+                                          for s in range(small)))
+        expect(all(ec_ok(r) for r in res), "[22] an lrc-xor write failed")
+        for s in range(small):
+            await ec_remove(fabric, lrc, 4, s, 2)
+        statsl = RepairIOStats()
+        res = await limited(EC_INFLIGHT, (ec.repair_stripe(lrc, 4, s, (2,), 6 * cs,
+                                                           stats=statsl)
+                                          for s in range(small)))
+        expect(all(ec_ok(r) for r in res) and statsl.reduced_shards == small
+               and statsl.bytes_read == small * 4 * cs,
+               f"[22] lrc-xor group repair: {statsl}")
+        ec_check_repaired(fabric, lrc, 4, {s: (2,) for s in range(small)}, dl, cl,
+                          "lrc-xor repair")
+        await ec_read_all(ec, lrc, 4, range(small), 6 * cs, dl, cl, "lrc-xor read")
+        lrc_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+
+        # one RS(8+2) stripe ending mid-chunk: the trimmed tail's CRC is the
+        # host's (stored), a rebuilt tail reports none
+        tail_len = 5 * cs + cs // 2 + 123
+        dt = rng.integers(0, 256, (1, K, cs), dtype=np.uint8)
+        dt.reshape(-1)[tail_len:] = 0
+        ct = plain_shard_crcs(dt, dev)
+        tail = dt[0].tobytes()[:tail_len]
+        ct[0, 5] = host.crc32c(tail[5 * cs:])
+        cc.reset_launches()
+        res = await ec.write_stripe(lay, 5, 0, tail)
+        expect(ec_ok(res), "[22] the mid-chunk stripe write failed")
+        meta = ec_target_engine(fabric, lay.shard_chain(0, 5)).get_meta(
+            lay.shard_chunk(5, 0, 5))
+        expect(meta.length == tail_len - 5 * cs and meta.checksum == int(ct[0, 5]),
+               f"[22] the trimmed tail's stored CRC {meta}")
+        got, crcs = await ec.read_stripe_with_crcs(lay, 5, 0, tail_len)
+        # the tail reports its stored CRC when read, none when the first-k
+        # read decoded it; the zero holes report none
+        expect(got == tail and crcs[:5] == [int(c) for c in ct[0, :5]]
+               and crcs[5] in (int(ct[0, 5]), None) and crcs[6:] == [None, None],
+               f"[22] mid-chunk read {crcs}")
+        await ec_remove(fabric, lay, 5, 0, 5)
+        got, crcs = await ec.read_stripe_with_crcs(lay, 5, 0, tail_len)
+        expect(got == tail and crcs[5] is None, f"[22] mid-chunk degraded read {crcs}")
+        res = await ec.repair_stripe(lay, 5, 0, (5,), tail_len)
+        meta = ec_target_engine(fabric, lay.shard_chain(0, 5)).get_meta(
+            lay.shard_chunk(5, 0, 5))
+        expect(ec_ok(res) and meta.checksum == int(ct[0, 5])
+               and meta.update_ver == meta.commit_ver,
+               f"[22] the repaired tail's stored CRC {meta}")
+        add_launches(total, cc.launches)
+
+        # one node's server stops: its two chains (the m = 2 limit) lost
+        victim = fabric.nodes[1]
+        lost_slots = tuple(sl for sl in range(K + M) if fabric.routing.chains[
+            lay.shard_chain(0, sl)].targets[0].node_id == victim.node_id)
+        await fabric.servers[1].stop()
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        await ec_read_all(ec, lay, inode, range(loss_reads), K * cs, data, want_crc,
+                          f"node {victim.node_id} down, slots {lost_slots} lost")
+        n_wall = time.perf_counter() - t0
+        add_launches(total, cc.launches)
+        nbytes = loss_reads * K * cs
+        log(f"[22] pm-msr ({small} stripes: write, repair of slot 3, two-loss read) "
+            f"{msr_wall:.3f} s, repair {stats}; RS(6+3) ({small}: write, read "
+            f"losing (0, 4, 7), repair) {rs63_wall:.3f} s, {stats63}; lrc-xor "
+            f"(6+2, groups {lrc.local_groups()}: write, group repair of slot 2) "
+            f"{lrc_wall:.3f} s, {statsl}; one stripe of {tail_len} B, its "
+            f"tail's CRC on the host; node {victim.node_id} down (slots "
+            f"{lost_slots}): {loss_reads} degraded reads {n_wall:.3f} s, "
+            f"{nbytes / n_wall / 1e9:.3f} GB/s of data")
+        per_node = [(n.node_id, n.codec.batches, n.codec.batched_items,
+                     n.aio.completed if n.aio is not None else "no io_uring worker")
+                    for n in fabric.nodes]
+        log(f"[22] per node (B1 batches, items, io_uring reads completed): "
+            + ", ".join(f"n{i} {b}, {it}, {a}" for i, b, it, a in per_node))
+        log(f"[22] codec: {codec.flushes} flushes, {codec.batched_items} items "
+            f"({codec.batched_items / max(codec.flushes, 1):.2f} a flush), "
+            f"{codec.batches} key groups, codec_counts={codec.codec_counts}; "
+            f"phase launches {total}")
+        expect_routes(codec, ("cuda-encode-words", "cuda-decode-words",
+                              "cuda-repair-words", "cuda-encode-bytes",
+                              "cuda-decode-bytes", "cuda-msr-encode",
+                              "cuda-msr-repair", "cuda-msr-decode"))
+        if dev.type == "cuda":
+            for name in ("crc_words", "rs_raid6_words", "rs_reconstruct_words",
+                         "repair_words", "rs_bitmatmul", "crc_bytes"):
+                expect(total.get(name, 0) > 0, f"[22] the EC path launched no {name}")
+        return total
+    finally:
+        await ec.close()
+        await sc.close()
+        await fabric.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1806,10 +2206,13 @@ def main() -> int:
     _build.build_all()
     log(f"[0] kernel build: {time.perf_counter() - t0:.1f} s")
     from t3fs_torch.ops.codec import host_impl
+    from t3fs_torch.storage.aio import AioReadWorker
     t0 = time.perf_counter()
-    expect(host_impl() == "native", "the native host CRC (csrc/host_crc32c.cc) "
-           "did not build or failed its self-check")
-    log(f"[0] native host CRC (host_crc32c.cc, g++): {time.perf_counter() - t0:.1f} s")
+    expect(host_impl() == "native", "the native host library (csrc/chunk_engine.cpp, "
+           "csrc/aio_reader.cpp) did not build or its CRC failed the self-check")
+    log(f"[0] native host library: chunk engine, host CRC and io_uring reader "
+        f"(chunk_engine.cpp, aio_reader.cpp, g++): {time.perf_counter() - t0:.1f} s; "
+        f"io_uring available: {AioReadWorker.available()}")
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"[0] nvcc {name}: {line.strip()}")
@@ -1844,6 +2247,7 @@ def main() -> int:
         main_runs.append(asyncio.run(
             phase_chain(dev, pipeline, CHAIN_FILE_BYTES, CHUNK_BYTES)))
     chain_device_times(dev, CHUNK_BYTES)
+    main_runs.append(asyncio.run(phase_ec_stripes(dev)))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

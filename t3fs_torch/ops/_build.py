@@ -5,8 +5,11 @@ interface, compiled for sm_90a at first use into t3fs_torch/_build/ (listed
 in .gitignore), under a name keyed by a hash of the source, the shared
 headers and the flags, so an edited source or header rebuilds and an
 unchanged one loads.  All missing libraries compile in parallel, one nvcc
-each.  The host CRC (csrc/host_crc32c.cc) is built the same way by the host
-compiler (host_library).  Nothing here runs at import.
+each.  The one host library is built the same way by the host compiler
+(host_library): the native chunk engine with the host CRC32C and the
+io_uring read engine (csrc/chunk_engine.cpp and csrc/aio_reader.cpp, with
+the flags of the reference's t3fs/native/build.py).  Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17",
+HOST_LIB = "native_storage"
+HOST_SOURCES = ("chunk_engine.cpp", "aio_reader.cpp")
+HOST_CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
                   *(("-msse4.2",) if platform.machine() in ("x86_64", "AMD64")
                     else ()))
+# linked with -lrt as t3fs/native/build.py links it (librt before glibc 2.34)
+HOST_LDFLAGS = ("-lrt",)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -137,19 +144,21 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def _host_target(name: str) -> Path:
-    h = hashlib.sha256((SRC_DIR / f"{name}.cc").read_bytes())
-    h.update(" ".join(HOST_CXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+def _host_target() -> Path:
+    h = hashlib.sha256()
+    for src in HOST_SOURCES:
+        h.update((SRC_DIR / src).read_bytes())
+    h.update(" ".join((*HOST_CXX_FLAGS, *HOST_LDFLAGS)).encode())
+    return BUILD_DIR / f"lib{HOST_LIB}-{h.hexdigest()[:16]}.so"
 
 
-def host_library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cc, built first by the host C++
+def host_library() -> ctypes.CDLL:
+    """The loaded host library (HOST_SOURCES), built first by the host C++
     compiler if needed (raises RuntimeError where there is none)."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(HOST_LIB)
         if lib is None:
-            out = _host_target(name)
+            out = _host_target()
             if not out.exists():
                 cxx = os.environ.get("CXX") or shutil.which("g++") \
                     or shutil.which("c++")
@@ -159,13 +168,13 @@ def host_library(name: str) -> ctypes.CDLL:
                 tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
                 proc = subprocess.run(
                     [cxx, *HOST_CXX_FLAGS, "-o", str(tmp),
-                     str(SRC_DIR / f"{name}.cc")],
+                     *(str(SRC_DIR / src) for src in HOST_SOURCES), *HOST_LDFLAGS],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                build_logs[name] = proc.stdout
+                build_logs[HOST_LIB] = proc.stdout
                 if proc.returncode:
                     tmp.unlink(missing_ok=True)
-                    raise RuntimeError(f"{name}.cc (rc={proc.returncode}):\n"
-                                       f"{proc.stdout}")
+                    raise RuntimeError(f"{', '.join(HOST_SOURCES)} "
+                                       f"(rc={proc.returncode}):\n{proc.stdout}")
                 os.replace(tmp, out)
-            lib = _libs[name] = ctypes.CDLL(str(out))
+            lib = _libs[HOST_LIB] = ctypes.CDLL(str(out))
         return lib

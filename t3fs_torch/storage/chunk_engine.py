@@ -338,19 +338,3 @@ class ChunkEngine:
                 os.close(fd)
             self._files.clear()
 
-
-def make_engine(root: str, *, backend: str = "py", sync_writes: bool = False):
-    """Engine factory.  The port carries the SQLite engine only: the
-    reference's native C++ engine (t3fs/native/chunk_engine.cpp) is not
-    ported yet (ROADMAP A12d), so asking for it raises instead of quietly
-    running another engine, as does opening a root the native engine
-    wrote."""
-    if backend != "py":
-        raise ValueError(
-            f"engine backend {backend!r}: the port has the 'py' engine only; "
-            "the native chunk engine is ROADMAP A12d")
-    if os.path.exists(os.path.join(root, "meta.wal")) or \
-            os.path.exists(os.path.join(root, "meta.snap")):
-        raise ValueError(f"{root} holds a native-engine store, which the "
-                         "port cannot open (ROADMAP A12d)")
-    return ChunkEngine(root, sync_writes=sync_writes)

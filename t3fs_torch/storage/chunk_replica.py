@@ -288,3 +288,39 @@ class ChunkReplica:
                 return self._read_finish(io, meta2, data)
         raise make_error(StatusCode.CHUNK_BUSY,
                          f"{io.chunk_id}: update storm during read")
+
+    async def read_aio(self, io: ReadIO, aio,
+                       meta_hint: "ChunkMeta | None" = None
+                       ) -> tuple[IOResult, bytes]:
+        """read() with the disk pread submitted through the io_uring worker
+        (AioReadWorker) instead of the engine's locked pread.  The aio read
+        holds NO engine lock, so validation is locate -> pread -> locate:
+        the post-read locate must return the SAME allocation generation
+        (Slot::gen — a put/remove/recreate bumps it, closing the ABA where
+        a recreated chunk reproduces identical meta on a reused block) and
+        the meta must be unchanged.  Falls back to the locked thread-pool
+        read when the engine can't locate or the aio worker errors."""
+        import asyncio as _a
+
+        locate = getattr(self.engine, "locate", None)
+        for attempt in range(8):
+            meta = self._read_meta_checked(io, meta_hint, attempt)
+            loc = locate(io.chunk_id, io.offset,
+                         io.length if io.length else meta.length) \
+                if locate is not None else None
+            if loc is None:
+                return await _a.to_thread(self.read, io, meta_hint)
+            fd, abs_off, n, gen = loc
+            try:
+                data = await aio.submit_read(fd, abs_off, n) if n else b""
+            except OSError:
+                # ring dead/full: self-heal onto the thread pipeline
+                return await _a.to_thread(self.read, io, meta_hint)
+            meta2 = self.engine.get_meta(io.chunk_id)
+            loc2 = locate(io.chunk_id, io.offset,
+                          io.length if io.length else meta.length)
+            if self._meta_unchanged(meta, meta2) and loc2 is not None \
+                    and loc2[3] == gen and len(data) == n:
+                return self._read_finish(io, meta2, data)
+        raise make_error(StatusCode.CHUNK_BUSY,
+                         f"{io.chunk_id}: update storm during read")

@@ -14,8 +14,8 @@ replies to the client only after the whole chain committed
 The port of t3fs/storage/service.py.  Every hop's payload CRC goes through
 the node's checksum backend, by default the CUDA one (B1,
 t3fs_torch/csrc/crc_words.cu, for payloads at or above its cutoff).  Not
-ported yet: the usrbio ring plane (Storage.ring_*), the io_uring read
-worker and the StorageEventTrace log.
+ported yet: the usrbio ring plane (Storage.ring_*) and the
+StorageEventTrace log.
 """
 
 from __future__ import annotations
@@ -69,11 +69,11 @@ class StorageTarget:
     event loop never blocks on pwrite/fsync, and per-disk write ordering
     stays deterministic."""
 
-    def __init__(self, target_id: int, root: str, engine_backend: str = "py"):
+    def __init__(self, target_id: int, root: str, engine_backend: str = "native"):
         import os as _os
         from concurrent.futures import ThreadPoolExecutor
 
-        from t3fs_torch.storage.chunk_engine import make_engine
+        from t3fs_torch.storage.native_engine import make_engine
 
         self.target_id = target_id
         # VIRGIN-disk detection for the chain state machine: a target
@@ -146,6 +146,10 @@ class StorageNode:
         self.read_delay_s = 0.0
         self.frag_store = FragmentStore(combine=self.codec.combine)
         self._read_sem: asyncio.Semaphore | None = None
+        # io_uring read pipeline (AioReadWorker.h:21-44 analog); started by
+        # the fabric when the kernel supports it, else large reads keep the
+        # thread-pool path
+        self.aio = None
         self.targets: dict[int, StorageTarget] = {}
         # local target states reported in heartbeats (failure-detection input,
         # fbs/mgmtd/LocalTargetInfo.h analog): a fresh/restarted target is
@@ -176,7 +180,7 @@ class StorageNode:
 
     def add_target(self, target_id: int, root: str,
                    state: LocalTargetState = LocalTargetState.ONLINE,
-                   engine_backend: str = "py") -> StorageTarget:
+                   engine_backend: str = "native") -> StorageTarget:
         t = StorageTarget(target_id, root, engine_backend)
         if not self.codec.verify_enabled:
             # null backend: EVERY path (append combine, overwrite recompute,
@@ -627,8 +631,8 @@ class StorageService:
     # ---- read path ----
 
     async def _read_one(self, io: ReadIO) -> tuple[IOResult, bytes]:
-        """One chunk read to completion: chain check, then inline or
-        thread-pool engine read.
+        """One chunk read to completion: chain check, then inline /
+        io_uring / thread-pool engine read.
         Raises StatusError; payload delivery is the caller's business."""
         node = self.node
         node.read_count.add()
@@ -648,6 +652,12 @@ class StorageService:
             length_hint = meta_hint.length if meta_hint else 0
         if length_hint <= SMALL_READ_INLINE_BYTES:
             result, data = target.replica.read(io, meta_hint)
+        elif node.aio is not None:
+            # io_uring path: disk read runs in the kernel, no
+            # thread hop, no engine lock held across the IO
+            async with node._read_sem:
+                result, data = await target.replica.read_aio(
+                    io, node.aio, meta_hint)
         else:
             async with node._read_sem:
                 result, data = await asyncio.to_thread(

@@ -266,9 +266,7 @@ class TargetOpReq:
     offlineTarget, removeTarget, getAllChunkMetadata)."""
     target_id: int = 0
     root: str = ""               # create_target: data directory
-    # the port's only engine ("native" raises there: ROADMAP A12d); the
-    # value rides the wire as it does from the reference
-    engine_backend: str = "py"
+    engine_backend: str = "native"
     chain_id: int = 0            # alternative addressing for meta dumps
 
 

@@ -6,9 +6,9 @@ replica count / node count (SystemSetupConfig, :86-163).
 
 The port of t3fs/testing/fabric.py: each node's payload CRCs run on the
 CUDA checksum backend unless the caller asks for another one (the tests
-pass "cpu" or a CudaChecksumBackend on device="cpu"), on the SQLite chunk
-engine, and every read takes the thread-pool path (the io_uring read
-worker is not ported yet).
+pass "cpu" or a CudaChecksumBackend on device="cpu"); as in the reference,
+targets default to the native chunk engine and large reads to the io_uring
+worker where the kernel allows it (else the thread-pool path).
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ class StorageFabric:
     # class-level defaults so suites can parameterize every test at once
     # (UnitTestFabric SystemSetupConfig analog, tests/lib/UnitTestFabric.h:86)
     default_checksum_backend: str = "cuda"
-    default_engine_backend: str = "py"
-    default_aio_read: bool = False
+    default_engine_backend: str = "native"
+    default_aio_read: bool = True
     default_write_pipeline: str = "off"
     default_stream_threshold: int | None = None
 
@@ -55,11 +55,6 @@ class StorageFabric:
         self.num_chains = num_chains
         self.aio_read = (aio_read if aio_read is not None
                          else self.default_aio_read)
-        if self.aio_read:
-            # AioReadWorker needs t3fs/native/aio_reader.cpp, not ported
-            # yet (ROADMAP A12d): refuse rather than read another way
-            raise ValueError("aio_read=True: the io_uring read worker is "
-                             "not ported (ROADMAP A12d)")
         self.checksum_backend = (checksum_backend if checksum_backend is not None
                                  else self.default_checksum_backend)
         self.engine_backend = engine_backend or self.default_engine_backend
@@ -91,6 +86,11 @@ class StorageFabric:
             if self.stream_threshold is not None:
                 node.stream_threshold = self.stream_threshold
                 node.stream_frag_bytes = max(1, self.stream_threshold // 2)
+            if self.aio_read:
+                from t3fs_torch.storage.aio import AioReadWorker
+                if AioReadWorker.available():
+                    node.aio = AioReadWorker()
+                    node.aio.start()
             node.client.add_service(BufferRegistry())  # forwarding conns
             if self.num_chains == 1:
                 node.add_target(self.target_id(i),
@@ -153,6 +153,11 @@ class StorageFabric:
             await node.codec.close()
         for server in self.servers:
             await server.stop()
+        for node in self.nodes:
+            # after the RPC servers: in-flight reads may hold node.aio
+            if node.aio is not None:
+                await node.aio.close()
+                node.aio = None
         for node in self.nodes:
             for t in node.targets.values():
                 t.close()

@@ -1,4 +1,4 @@
-"""The port's native host CRC32C (t3fs_torch/csrc/host_crc32c.cc through
+"""The port's native host CRC32C (t3fs_torch/csrc/chunk_engine.cpp through
 t3fs_torch.ops.codec) against the port's table oracle and the reference's
 host CRC (t3fs.ops.codec); bit-exact at every length."""
 

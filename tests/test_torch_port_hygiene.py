@@ -74,6 +74,7 @@ def _entry_points():
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import devbench, sort_bench
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
+    from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
     from t3fs_torch.ops import (
         cuda_codec, device_sort, msr_codec, tables, torch_codec)
@@ -144,14 +145,16 @@ def _entry_points():
         lambda: StorageNode(1, lambda: None, None),
         lambda: asyncio.run(_default_fabric()),
         lambda: asyncio.run(_default_fabric(client_writes=True)),
+        # the EC client: its default codec is TorchECCodec() on "cuda"
+        lambda: ECStorageClient(None),
     ]
 
 
-@pytest.mark.parametrize("i", range(52))
+@pytest.mark.parametrize("i", range(53))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 52
+    assert len(entries) == 53
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -202,18 +205,46 @@ def test_sort_bench_cli_fails_without_gpu():
     assert "device='cpu'" in r.stderr and "{" not in r.stdout
 
 
-def test_port_refuses_what_it_has_not_ported(tmp_path):
-    """The native chunk engine, the io_uring read worker and the ring data
-    plane are not ported: asking for one raises, never runs another."""
+def test_port_refuses_what_it_has_not_ported():
+    """The ring data plane is not ported: asking for it raises, never runs
+    another plane."""
     from t3fs_torch.client.storage_client import (
         StorageClient, StorageClientConfig)
-    from t3fs_torch.storage.chunk_engine import make_engine
-    from t3fs_torch.testing.fabric import StorageFabric
 
-    with pytest.raises(ValueError, match="A12d"):
-        make_engine(str(tmp_path), backend="native")
-    with pytest.raises(ValueError, match="A12d"):
-        StorageFabric(num_nodes=1, replicas=1, aio_read=True)
     with pytest.raises(ValueError, match="ring"):
         StorageClient(lambda: None,
                       config=StorageClientConfig(data_plane="ring"))
+
+
+NATIVE_FROM_PORT = """
+import sys
+from pathlib import Path
+from t3fs_torch.storage.aio import AioReadWorker
+from t3fs_torch.storage.native_engine import make_engine, native_lib
+from t3fs_torch.testing.fabric import StorageFabric
+e = make_engine(sys.argv[1], backend="native")
+print(type(e).__name__)
+e.close()
+lib = Path(native_lib()._name).resolve()
+assert lib.parent == Path("t3fs_torch/_build").resolve(), lib
+assert lib.name.startswith("libnative_storage-"), lib
+AioReadWorker.available()
+fab = StorageFabric(num_nodes=1, replicas=1, aio_read=True)
+assert (StorageFabric.default_engine_backend, StorageFabric.default_aio_read,
+        fab.aio_read) == ("native", True, True)
+maps = Path("/proc/self/maps").read_text() if Path("/proc/self/maps").exists() else ""
+assert "libt3fs_native" not in maps
+assert not [m for m in sys.modules if m == "t3fs" or m.startswith("t3fs.")]
+"""
+
+
+def test_port_native_engine_and_aio_come_from_the_port(tmp_path):
+    """The native chunk engine and the io_uring reader are the port's own:
+    built from t3fs_torch/csrc into t3fs_torch/_build, loaded without the
+    reference's library, and the fabric's defaults as in the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", NATIVE_FROM_PORT,
+                        str(tmp_path / "root")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["NativeChunkEngine"]

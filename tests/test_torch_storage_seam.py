@@ -2,7 +2,8 @@
 the reference's StorageFabric with each node's codec seam given a
 t3fs_torch CudaChecksumBackend (on its plain version here, on the card in
 the `cuda` twin), once with the default 64 KiB device cutoff and once with
-every payload through the batching path.  Every stored checksum must equal
+every payload through the batching path, each on the SQLite engine with
+thread-pool reads and on the native engine with io_uring reads.  Every stored checksum must equal
 the table oracle's CRC of the stored bytes and a `cpu`-backend fabric's.
 
 The reference's make_checksum_backend knows only its own backends, so the
@@ -57,9 +58,14 @@ def _traffic(seed: int) -> list[tuple[int, int, bytes]]:
     return ops
 
 
-async def _run(backend, seed: int = 9) -> list:
+# engine -> the reference fabric's (engine_backend, aio_read)
+STORAGE = {"py": ("py", False), "native": ("native", True)}
+
+
+async def _run(backend, seed: int = 9, engine: str = "py") -> list:
+    engine_backend, aio_read = STORAGE[engine]
     fabric = StorageFabric(num_nodes=3, replicas=3, checksum_backend=backend,
-                           engine_backend="py", aio_read=False)
+                           engine_backend=engine_backend, aio_read=aio_read)
     await fabric.start()
     try:
         for seq, (idx, off, payload) in enumerate(_traffic(seed), start=1):
@@ -90,14 +96,15 @@ async def _run(backend, seed: int = 9) -> list:
         await fabric.stop()
 
 
+@pytest.mark.parametrize("engine", ["py", "native"])
 @pytest.mark.parametrize("min_device_bytes", [64 << 10, 0])
-def test_port_backend_in_reference_service(port_seam, min_device_bytes):
+def test_port_backend_in_reference_service(port_seam, min_device_bytes, engine):
     def port():
         return CudaChecksumBackend(device="cpu", max_wait_us=200,
                                    min_device_bytes=min_device_bytes)
 
-    got, batched = asyncio.run(_run(port))
-    want, _ = asyncio.run(_run("cpu"))
+    got, batched = asyncio.run(_run(port, engine=engine))
+    want, _ = asyncio.run(_run("cpu", engine=engine))
     assert got == want
     for _length, checksum, _ver, data in got:
         assert checksum == crc32c_ref(data)

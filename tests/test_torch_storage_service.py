@@ -6,8 +6,9 @@ version) and the three write pipelines; then a differential run of one
 seeded update sequence through the reference fabric and the port's, which
 must agree bit for bit; and `cuda`-marked twins on the card.
 
-Not here: the io_uring read cases and the check worker, whose modules are
-not ported yet.
+The fabric's defaults are the reference's: the native chunk engine and
+io_uring reads (their own cases are in tests/test_torch_native_engine.py).
+Not here: the check worker, whose module is not ported yet.
 """
 
 import asyncio
@@ -520,10 +521,10 @@ def test_stale_head_cannot_single_copy_commit():
 
 @pytest.mark.usefixtures("fabric_setup")
 def test_large_read_thread_pipeline():
-    """>64 KiB reads hop to the read pool (the port has no io_uring worker);
-    a 256 KiB write takes the device CRC path."""
+    """>64 KiB reads hop to the read pool when io_uring reads are off; a
+    256 KiB write takes the device CRC path."""
     async def body():
-        fabric = StorageFabric(num_nodes=1, replicas=1)
+        fabric = StorageFabric(num_nodes=1, replicas=1, aio_read=False)
         await fabric.start()
         try:
             cid = ChunkId(77, 0)
@@ -539,16 +540,19 @@ def test_large_read_thread_pipeline():
     run(body())
 
 
+@pytest.mark.parametrize("engine", ["py", "native"])
 @pytest.mark.parametrize("pipeline", ["off", "overlap", "streamed"])
 @pytest.mark.parametrize("backend", ["cpu", "device"])
-def test_differential_against_reference(backend, pipeline):
+def test_differential_against_reference(backend, pipeline, engine):
     """One seeded sequence of updates (full, partial, append, truncate,
     remove; lengths around the 64 KiB device cutoff) through the reference
-    fabric and the port's: every IOResult and every replica's bytes and
-    ChunkMeta equal, bit for bit."""
+    fabric and the port's, on the SQLite engine with thread reads and on
+    the native engine with io_uring reads: every IOResult and every
+    replica's bytes and ChunkMeta equal, bit for bit."""
     port_backend = "cpu" if backend == "cpu" else (
         lambda: CudaChecksumBackend(device="cpu", max_wait_us=200))
-    ref, port = run(diff.run_both(port_backend, pipeline, seed=1234))
+    ref, port = run(diff.run_both(port_backend, pipeline, seed=1234,
+                                  engine=engine))
     assert port == ref
     assert len(port["results"]) == diff.NUM_UPDATES
     assert all(r[0] == int(StatusCode.OK) for r in port["results"])

@@ -12,6 +12,7 @@ import pytest
 import t3fs.client.layout
 import t3fs.client.storage_client
 import t3fs.mgmtd.types
+import t3fs.net.client
 import t3fs.net.rdma
 import t3fs.net.wire
 import t3fs.storage.types
@@ -96,6 +97,42 @@ def test_serde_bytes_equal(name, seed):
     # and each package decodes the other's bytes to the same value
     assert PORT.serde.dumps(PORT.serde.loads(ref)) == ref
     assert REF.serde.dumps(REF.serde.loads(port)) == port
+
+
+def test_default_target_op_req_bytes_equal():
+    """A default TargetOpReq (engine_backend "native") is the same bytes
+    from either package, and each decodes the other's to its default."""
+    ref = REF.serde.dumps(REF.st.TargetOpReq())
+    port = PORT.serde.dumps(PORT.st.TargetOpReq())
+    assert port == ref
+    assert PORT.serde.loads(ref) == PORT.st.TargetOpReq()
+    assert PORT.st.TargetOpReq().engine_backend == "native"
+    full = dict(target_id=7, root="/data/t7", engine_backend="py", chain_id=3)
+    assert PORT.serde.dumps(PORT.st.TargetOpReq(**full)) == \
+        REF.serde.dumps(REF.st.TargetOpReq(**full))
+
+
+def test_reference_default_create_target_on_port_node(tmp_path):
+    """A reference sender's default create_target reaches a port node,
+    which opens the native engine it asks for."""
+    from t3fs_torch.storage.native_engine import NativeChunkEngine
+
+    async def body():
+        fab = PORT.fabric.StorageFabric(num_nodes=1, replicas=1,
+                                        checksum_backend="cpu")
+        await fab.start()
+        client = t3fs.net.client.Client()
+        try:
+            req = REF.st.TargetOpReq(target_id=555, root=str(tmp_path / "t"))
+            rsp, _ = await client.call(fab.routing.node_address(1),
+                                       "Storage.create_target", req)
+            assert rsp.target_id == 555
+            assert isinstance(fab.nodes[0].targets[555].engine,
+                              NativeChunkEngine)
+        finally:
+            await client.close()
+            await fab.stop()
+    asyncio.run(body())
 
 
 def _frame(p, seed: int, payload: bytes) -> bytes:

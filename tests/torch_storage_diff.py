@@ -116,18 +116,27 @@ async def run_fabric(fabric, types, crc32c, ops) -> dict:
         await fabric.stop()
 
 
-async def run_both(port_backend, pipeline: str, seed: int) -> tuple[dict, dict]:
-    """The same ops through the reference fabric (cpu backend, Python
-    engine, thread reads) and the port's fabric on port_backend."""
+# engine -> (engine_backend, aio_read) of both fabrics: the SQLite engine
+# with thread-pool reads, or the reference's defaults, the native engine
+# with io_uring reads
+STORAGE = {"py": ("py", False), "native": ("native", True)}
+
+
+async def run_both(port_backend, pipeline: str, seed: int,
+                   engine: str = "py") -> tuple[dict, dict]:
+    """The same ops through the reference fabric (cpu backend) and the
+    port's fabric on port_backend, both on `engine`'s storage."""
     ops = make_ops(seed)
     threshold = (64 << 10) if pipeline == "streamed" else None
+    engine_backend, aio_read = STORAGE[engine]
     ref = await run_fabric(
         RefFabric(num_nodes=3, replicas=3, checksum_backend="cpu",
-                  engine_backend="py", aio_read=False, write_pipeline=pipeline,
-                  stream_threshold=threshold),
+                  engine_backend=engine_backend, aio_read=aio_read,
+                  write_pipeline=pipeline, stream_threshold=threshold),
         ref_types, ref_codec.crc32c, ops)
     port = await run_fabric(
         PortFabric(num_nodes=3, replicas=3, checksum_backend=port_backend,
+                   engine_backend=engine_backend, aio_read=aio_read,
                    write_pipeline=pipeline, stream_threshold=threshold),
         port_types, port_codec.crc32c, ops)
     return ref, port
