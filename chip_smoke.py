@@ -117,6 +117,27 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      read) and of rebuilt and helper bytes (repair), codec flushes and
      items per flush, each node's B1 batches and items and io_uring reads,
      and the phase's launches
+ 23  target resync and EC recovery after a node loss (BASELINE.json config
+     #4's resync half): the port's LocalCluster (mgmtd over the in-memory
+     KV, heartbeats, the chains updater, 5 StorageServers with their resync
+     workers, all in this process), 5 chains of 3 (chain c on nodes c, c+1,
+     c+2 mod 5) and 10 one-replica EC chains, a CudaChecksumBackend a node
+     on the card, the native engine (every target checked); a seeded 1 GiB
+     file of 4 MiB chunks and 32 RS(8+2) stripes of 8 x 1 MiB
+     (ECStorageClient over TorchECCodec, 16 in flight).  Node 2 fail-stops
+     (timed to the reshape), 64 chunks are overwritten and a 256 MiB file
+     written on the survivors (each checked committed there) and 16 stripes
+     read degraded; node 2 restarts on its old disk (the resync sends only
+     what changed: checked), node 4 restarts empty (every chunk of its
+     chains resynced: checked); a ScrubScheduler scans until nothing is left
+     (the wiped node's 64 shards by the full-k decode, then one shard
+     bit-rotted on disk on the reduced path).  Every chunk of every replica
+     read from its engine against the acked bytes, the native host CRC and
+     plain B1, committed, no replica holding a chunk its chain's others
+     lack; every stripe whole, every rebuilt shard's bytes and checksum
+     against the plain encode; each successor's resync REPLACEs batched on
+     B1; prints the walls, the bytes resynced and GB/s, the scrub's repairs,
+     helper bytes and GB/s, each node's B1 batches and reads, the launches
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -125,8 +146,8 @@ each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, the
 bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
 launches would drown the codec paths' counts, each mesh rank's one run of
 its steps in phase 19, summed over the ranks, phase 20's step, each
-pass of phase 21 and each step of phase 22, its warmups excepted) and read
-just after; launches
+pass of phase 21, each step of phase 22 and phase 23 after its cluster's
+start and warmups) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -137,6 +158,7 @@ import asyncio
 import contextlib
 import io
 import json
+import shutil
 import sys
 import time
 
@@ -184,6 +206,17 @@ EC_STRIPES = 64
 EC_INFLIGHT = 16
 EC_SMALL_STRIPES = 8
 EC_NODE_LOSS_READS = 16
+# phase 23: the recovery drill on a LocalCluster of 5 nodes at storage_bench's
+# 4 MiB chunks; only the chunk and stripe counts are cut from a storage_bench run
+RECOVERY_FILE_CHUNKS = 256     # a 1 GiB file over 5 chains of 3 (3 GiB stored)
+RECOVERY_OVERWRITES = 64       # chunks of it overwritten while a node is down
+RECOVERY_NEW_CHUNKS = 64       # a 256 MiB file written while a node is down
+RECOVERY_EC_STRIPES = 32       # RS(8+2) stripes of 8 x 1 MiB: 256 MiB of data
+RECOVERY_DEGRADED_READS = 16
+RECOVERY_INFLIGHT = 16         # chunk writes in flight
+RECOVERY_FLAP_NODE = 2         # fail-stops, restarts on its old disk
+RECOVERY_WIPE_NODE = 4         # restarts on an empty disk
+RECOVERY_ROT_STRIPE = 5        # one shard of it bit-rotted on disk
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -1829,7 +1862,11 @@ def chain_device_times(dev: torch.device, chunk_bytes: int) -> dict:
 # --- phase 22: the EC stripe path end to end ----------------------------------
 
 def ec_target_engine(fabric, chain_id: int):
-    """The engine of a one-replica chain's target."""
+    """The engine of a one-replica chain's target, on a StorageFabric or on
+    a LocalCluster (phase 23)."""
+    if hasattr(fabric, "storage"):
+        t = fabric.chain(chain_id).targets[0]
+        return fabric.storage[t.node_id].node.targets[t.target_id].engine
     t = fabric.routing.chains[chain_id].targets[0]
     return fabric.nodes[t.node_id - 1].targets[t.target_id].engine
 
@@ -1863,20 +1900,21 @@ def ec_ok(results) -> bool:
 
 
 async def ec_read_all(ec, lay, inode: int, stripes, stripe_len: int,
-                      data: np.ndarray, want_crc: np.ndarray, tag: str) -> None:
+                      data: np.ndarray, want_crc: np.ndarray, tag: str,
+                      phase: int = 22) -> None:
     """read_stripe_with_crcs of `stripes`, EC_INFLIGHT in flight: every byte
     against the written data, every returned CRC against plain B1."""
     outs = await limited(EC_INFLIGHT, (ec.read_stripe_with_crcs(
         lay, inode, s, stripe_len) for s in stripes))
     for s, (got, crcs) in zip(stripes, outs):
         expect(got == data[s].tobytes()[:stripe_len],
-               f"[22] {tag}: stripe {s} read back differs")
+               f"[{phase}] {tag}: stripe {s} read back differs")
         expect(crcs == [int(c) for c in want_crc[s]],
-               f"[22] {tag}: stripe {s} CRCs {crcs} != plain B1 {want_crc[s].tolist()}")
+               f"[{phase}] {tag}: stripe {s} CRCs {crcs} != plain B1 {want_crc[s].tolist()}")
 
 
 def ec_check_repaired(fabric, lay, inode: int, lost: dict, data: np.ndarray,
-                      want_crc: np.ndarray, tag: str) -> None:
+                      want_crc: np.ndarray, tag: str, phase: int = 22) -> None:
     """Every repaired chunk committed, its stored bytes equal to the written
     chunk and its ChunkMeta.checksum to the native host CRC of them; a data
     chunk's checksum also equal to plain B1 of the written chunk, an RS
@@ -1896,7 +1934,7 @@ def ec_check_repaired(fabric, lay, inode: int, lost: dict, data: np.ndarray,
                 want = data[s, slot].tobytes()
             else:
                 expect(not lay.local_scheme and slot < k + lay.m,
-                       f"[22] {tag}: slot {slot} is not an RS parity slot")
+                       f"[{phase}] {tag}: slot {slot} is not an RS parity slot")
                 if parity is None:
                     parity = rs.encode_ref(data[s])
                 want = parity[slot - k].tobytes()
@@ -1904,10 +1942,10 @@ def ec_check_repaired(fabric, lay, inode: int, lost: dict, data: np.ndarray,
             expect(meta is not None and meta.checksum == crc
                    and meta.update_ver == meta.commit_ver
                    and (slot >= k or crc == int(want_crc[s, slot])),
-                   f"[22] {tag}: repaired stripe {s} slot {slot}: {meta} "
+                   f"[{phase}] {tag}: repaired stripe {s} slot {slot}: {meta} "
                    f"!= native {crc:#x}")
             expect(engine.read(cid) == want,
-                   f"[22] {tag}: repaired stripe {s} slot {slot}: stored bytes differ")
+                   f"[{phase}] {tag}: repaired stripe {s} slot {slot}: stored bytes differ")
 
 
 async def phase_ec_stripes(dev: torch.device, chunk_bytes: int = SHARD_BYTES,
@@ -2189,6 +2227,402 @@ async def phase_ec_stripes(dev: torch.device, chunk_bytes: int = SHARD_BYTES,
         await fabric.stop()
 
 
+# --- phase 23: the storage cluster under mgmtd, after a node loss -------------
+
+def cluster_engine(cluster, t):
+    """The engine of chain target `t` on a LocalCluster."""
+    return cluster.storage[t.node_id].node.targets[t.target_id].engine
+
+
+def fully_redundant(cluster) -> bool:
+    """Every chain's every target SERVING, in mgmtd's routing."""
+    return all(len(c.serving()) == len(c.targets)
+               for c in cluster.mgmtd.state.routing().chains.values())
+
+
+async def wait_state(pred, timeout_s: float, what: str) -> float:
+    """Poll `pred` every 10 ms until it holds; the seconds it took.  A
+    deadline, never a fixed sleep: detection and resync run on the
+    cluster's wall clock."""
+    t0 = time.perf_counter()
+    while not pred():
+        expect(time.perf_counter() - t0 < timeout_s,
+               f"[23] no {what} within {timeout_s} s")
+        await asyncio.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def resync_sent(cluster, before: dict, skip: int) -> tuple[int, int, int]:
+    """(REPLACEd chunks, their bytes, REMOVEs) the pushers' resync workers
+    sent since `before`, node `skip` (the restarted successor) left out."""
+    out = [0, 0, 0]
+    for nid, ss in cluster.storage.items():
+        if nid == skip or nid not in before:
+            continue
+        now = (ss.resync.replaced_chunks, ss.resync.replaced_bytes,
+               ss.resync.removed_chunks)
+        for i in range(3):
+            out[i] += now[i] - before[nid][i]
+    return tuple(out)
+
+
+def resync_counts(cluster) -> dict:
+    return {nid: (ss.resync.replaced_chunks, ss.resync.replaced_bytes,
+                  ss.resync.removed_chunks) for nid, ss in cluster.storage.items()}
+
+
+def check_replicas(cluster, lay, expected: dict, b1: dict) -> int:
+    """On every replica of every replicated chain, read from its engine (not
+    through the head): the same set of chunks as the chain's others and as
+    the writes that were acked; each chunk's bytes equal to the last acked
+    write, its ChunkMeta committed (update_ver == commit_ver) with the
+    native host CRC of those bytes, and full chunks' CRC equal to plain B1.
+    Runs in a thread: the reads must not stall the cluster's event loop."""
+    from t3fs_torch.storage.types import ChunkId
+
+    routing = cluster.mgmtd.state.routing()
+    checked = 0
+    for cid in lay.chains:
+        chain = routing.chains[cid]
+        want = {ChunkId(i, x) for (i, x) in expected if lay.chain_of(x) == cid}
+        for t in chain.targets:
+            have = {m.chunk_id for m in cluster_engine(cluster, t).all_metas()}
+            expect(have == want, f"[23] chain {cid} target {t.target_id}: "
+                   f"{len(have - want)} chunks the chain's others lack, "
+                   f"{len(want - have)} acked chunks missing")
+    for (inode, idx), (row, crc) in expected.items():
+        buf = row.tobytes()
+        expect(b1.get((inode, idx), crc) == crc,
+               f"[23] chunk {inode}.{idx}: plain B1 {b1.get((inode, idx))} != native {crc:#x}")
+        for t in routing.chains[lay.chain_of(idx)].targets:
+            engine = cluster_engine(cluster, t)
+            meta = engine.get_meta(ChunkId(inode, idx))
+            expect(meta is not None and meta.checksum == crc
+                   and meta.update_ver == meta.commit_ver
+                   and meta.length == len(buf),
+                   f"[23] target {t.target_id} chunk {inode}.{idx}: {meta} "
+                   f"!= native {crc:#x}, {len(buf)} B, committed")
+            expect(engine.read(ChunkId(inode, idx)) == buf,
+                   f"[23] target {t.target_id} holds other bytes for {inode}.{idx}")
+            checked += 1
+    return checked
+
+
+async def phase_recovery(dev: torch.device, chunk_bytes: int = CHUNK_BYTES,
+                         file_chunks: int = RECOVERY_FILE_CHUNKS,
+                         overwrites: int = RECOVERY_OVERWRITES,
+                         new_chunks: int = RECOVERY_NEW_CHUNKS,
+                         shard_bytes: int = SHARD_BYTES,
+                         stripes: int = RECOVERY_EC_STRIPES,
+                         degraded_reads: int = RECOVERY_DEGRADED_READS) -> dict:
+    """Target resync and EC recovery after a node loss, through the port's
+    LocalCluster (mgmtd, heartbeats, the chains updater, StorageServers with
+    their resync workers): 5 nodes, 5 chains of 3 (chain c on nodes c, c+1,
+    c+2 mod 5) and 10 one-replica EC chains, a CudaChecksumBackend a node on
+    `dev`.  A seeded file of `file_chunks` x `chunk_bytes` striped over the
+    replicated chains and `stripes` RS(8+2) stripes at `shard_bytes` written
+    by ECStorageClient over TorchECCodec; then node RECOVERY_FLAP_NODE
+    fail-stops (wait for the reshape), `overwrites` chunks of the file and a
+    new file of `new_chunks` are written on the survivors and
+    `degraded_reads` stripes read degraded; the node restarts on its old
+    disk (resync of what changed), node RECOVERY_WIPE_NODE restarts empty
+    (full resync; its EC chains come back empty), and a ScrubScheduler
+    scans until nothing is left to repair, a shard bit-rotted on disk
+    between scans.  Every replica, every chunk and every stripe is checked;
+    returns the phase's launches."""
+    from t3fs_torch.client.ec_client import ECLayout, ECStorageClient
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.client.layout import FileLayout
+    from t3fs_torch.ops import codec as host
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.codec_backend import (
+        DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
+    from t3fs_torch.storage.native_engine import NativeChunkEngine
+    from t3fs_torch.storage.scrub_scheduler import ScrubScheduler
+    from t3fs_torch.storage.types import ChunkId
+    from t3fs_torch.testing.cluster import LocalCluster
+
+    cs, flap, wipe = chunk_bytes, RECOVERY_FLAP_NODE, RECOVERY_WIPE_NODE
+    rng = np.random.default_rng(SEED + 23)
+    # the data and its expected checksums (native host CRC, plain B1 of full
+    # chunks) before the cluster starts: none of it may stall the cluster's
+    # event loop, whose heartbeats fence a node after 0.3 s of silence
+    file_arr = rng.integers(0, 256, (file_chunks, cs), dtype=np.uint8)
+    over_idx = sorted(rng.choice(file_chunks, overwrites, replace=False).tolist())
+    over_arr = rng.integers(0, 256, (overwrites, cs), dtype=np.uint8)
+    new_arr = rng.integers(0, 256, (new_chunks, cs), dtype=np.uint8)
+    ec_data = rng.integers(0, 256, (stripes, K, shard_bytes), dtype=np.uint8)
+    ec_crc = plain_shard_crcs(ec_data, dev)
+    final = {(1, i): file_arr[i] for i in range(file_chunks)}
+    final.update({(1, i): over_arr[j] for j, i in enumerate(over_idx)})
+    final.update({(2, i): new_arr[i] for i in range(new_chunks)})
+    keys = sorted(final)
+    rows = np.stack([final[k] for k in keys])
+    b1 = {k: int(c) for k, c in zip(keys, plain_shard_crcs(rows[:, None, :], dev)[:, 0])}
+    expected = {k: (final[k], host.crc32c(final[k].tobytes())) for k in keys}
+    del rows
+
+    cluster = LocalCluster(num_nodes=5, replicas=3, num_chains=5, ec_chains=10,
+                           checksum_backend=lambda: CudaChecksumBackend(device=dev))
+    await cluster.start()
+    codec = TorchECCodec(device=dev)
+    ec = ECStorageClient(cluster.sc, codec=codec)
+    try:
+        sc = cluster.sc
+        engines = [(nid, tid, type(t.engine).__name__)
+                   for nid, ss in sorted(cluster.storage.items())
+                   for tid, t in sorted(ss.node.targets.items())]
+        expect(all(isinstance(t.engine, NativeChunkEngine)
+                   for ss in cluster.storage.values() for t in ss.node.targets.values()),
+               f"[23] a target is not on the native engine: {engines}")
+        lay = FileLayout(chunk_size=cs, chains=list(range(1, 6)))
+        elay = ECLayout.create(k=K, m=M, chunk_size=shard_bytes,
+                               chains=list(range(6, 16)))
+        free = shutil.disk_usage(cluster.node_root(1).rsplit("/", 1)[0]).free
+        log(f"[23] LocalCluster: 5 nodes, chains 1-5 of 3 replicas, EC chains 6-15 "
+            f"of one; {len(engines)} targets, all NativeChunkEngine; mgmtd heartbeat "
+            f"timeout {cluster.mgmtd_cfg.heartbeat_timeout_s} s, chains tick "
+            f"{cluster.mgmtd_cfg.chains_update_period_s} s; {free / 2**30:.1f} GiB "
+            f"free under the nodes' roots")
+        sizes = [n for n in (cs, shard_bytes) if n >= DEFAULT_MIN_DEVICE_BYTES]
+        for ss in cluster.storage.values():
+            await asyncio.to_thread(ss.node.codec.warmup, sizes)
+        codec.warmup_decode([(tuple(s for s in range(K + M) if s not in (1, 6))[:K], (1, 6)),
+                             (tuple(s for s in range(K + M) if s not in (3, 8))[:K], (3, 8))],
+                            shard_bytes, K, M)
+        # stripes_per_tick above the stripe count: every tick probes the
+        # whole file and wraps the walk at its end
+        sched = ScrubScheduler(ec, repair_mode="subshard", concurrency=8,
+                               stripes_per_tick=stripes + 1)
+        await sched.driver.warmup([elay])
+        steps: dict[str, dict] = {}
+        cc.reset_launches()
+
+        # each payload is copied out of its array when its write starts: a
+        # copy of every payload up front would stall the event loop
+        async def put(inode: int, arr: np.ndarray, j: int, i: int):
+            return await sc.write_file_range(lay, inode, i * cs, arr[j].tobytes())
+
+        async def put_stripe(s: int):
+            return await ec.write_stripe(elay, 10, s, ec_data[s].tobytes())
+
+        async def write_rows(inode: int, arr: np.ndarray, idx: list[int]) -> None:
+            res = await limited(RECOVERY_INFLIGHT, (
+                put(inode, arr, j, i) for j, i in enumerate(idx)))
+            bad = [r.status for rr in res for r in rr if r.status.code]
+            expect(not bad, f"[23] inode {inode}: a chunk write failed: {bad[:3]}")
+
+        # the seeded file and the EC stripes on the healthy cluster
+        t0 = time.perf_counter()
+        await write_rows(1, file_arr, list(range(file_chunks)))
+        f_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = await limited(EC_INFLIGHT, (put_stripe(s) for s in range(stripes)))
+        e_wall = time.perf_counter() - t0
+        expect(all(ec_ok(r) for r in res), "[23] a stripe write failed")
+        steps["write"] = dict(cc.launches)
+        log(f"[23] healthy: {file_chunks} x {cs >> 10} KiB chunks "
+            f"({file_chunks * cs >> 20} MiB, x3 stored) in {f_wall:.3f} s, "
+            f"{file_chunks * cs / f_wall / 1e9:.3f} GB/s of client bytes; {stripes} "
+            f"RS({K}+{M}) stripes of {K} x {shard_bytes >> 10} KiB in {e_wall:.3f} s, "
+            f"{stripes * K * shard_bytes / e_wall / 1e9:.3f} GB/s of data")
+
+        # 1. fail-stop: mgmtd must move the node's targets out of every
+        # chain's serving set
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        await cluster.kill_storage_node(flap)
+        kill_s = time.perf_counter() - t0
+        await wait_state(
+            lambda: all(t.node_id != flap for c in
+                        cluster.mgmtd.state.routing().chains.values()
+                        for t in c.serving()), 30.0, "reshape after the kill")
+        detect = time.perf_counter() - t0
+        routing = cluster.mgmtd.state.routing()
+        log(f"[23] node {flap} killed (the stop call {kill_s:.3f} s): every chain "
+            f"reshaped {detect:.3f} s after the kill call; " + ", ".join(
+                f"chain {c.chain_id} v{c.chain_ver} "
+                + "/".join(f"{t.target_id}:{t.public_state.name}" for t in c.targets)
+                for c in routing.chains.values() if c.chain_id <= 5))
+
+        # 2. writes and degraded reads during the outage
+        t0 = time.perf_counter()
+        await write_rows(1, over_arr, over_idx)
+        await write_rows(2, new_arr, list(range(new_chunks)))
+        o_wall = time.perf_counter() - t0
+        routing = cluster.mgmtd.state.routing()
+        acked = [(1, i) for i in over_idx] + [(2, i) for i in range(new_chunks)]
+        for inode, idx in acked:
+            chain = routing.chains[lay.chain_of(idx)]
+            serving = chain.serving()
+            down = any(t.node_id == flap for t in chain.targets)
+            expect(len(serving) == 3 - down and all(t.node_id != flap for t in serving),
+                   f"[23] chain {chain.chain_id} serving {serving} during the outage")
+            for t in serving:
+                meta = cluster_engine(cluster, t).get_meta(ChunkId(inode, idx))
+                expect(meta is not None and meta.update_ver == meta.commit_ver
+                       and meta.checksum == expected[(inode, idx)][1],
+                       f"[23] {inode}.{idx} not committed on survivor {t.target_id}: {meta}")
+        lost_slots = tuple(s for s in range(K + M) if cluster.chain(
+            elay.shard_chain(0, s)).targets[0].node_id == flap)
+        t0 = time.perf_counter()
+        await ec_read_all(ec, elay, 10, range(degraded_reads), K * shard_bytes, ec_data,
+                          ec_crc, f"node {flap} down, slots {lost_slots} lost", phase=23)
+        d_wall = time.perf_counter() - t0
+        steps["outage"] = dict(cc.launches)
+        nbytes = (overwrites + new_chunks) * cs
+        log(f"[23] outage: {overwrites} overwrites and a {new_chunks}-chunk file "
+            f"({nbytes / 2**20:.1f} MiB) acked by the survivors of each chain in "
+            f"{o_wall:.3f} s, {nbytes / o_wall / 1e9:.3f} GB/s of client bytes; "
+            f"{degraded_reads} stripes read degraded (slots {lost_slots}) in "
+            f"{d_wall:.3f} s, {degraded_reads * K * shard_bytes / d_wall / 1e9:.3f} "
+            f"GB/s of data")
+
+        # 3. flap: the node returns on its old disk; resync sends what changed
+        cc.reset_launches()
+        before = resync_counts(cluster)
+        t0 = time.perf_counter()
+        await cluster.restart_storage_node(flap)
+        await wait_state(lambda: fully_redundant(cluster), 120.0,
+                         "full redundancy after the flap")
+        flap_wall = time.perf_counter() - t0
+        flap_sent = resync_sent(cluster, before, flap)
+        flap_items = cluster.storage[flap].node.codec.batched_items
+        steps["flap"] = dict(cc.launches)
+        changed = sum(1 for k in acked if any(
+            t.node_id == flap for t in cluster.chain(lay.chain_of(k[1])).targets))
+        log(f"[23] flap: node {flap} restarted on its old disk, full redundancy "
+            f"{flap_wall:.3f} s after the restart call; resync REPLACEd "
+            f"{flap_sent[0]} chunks ({flap_sent[1] / 2**20:.1f} MiB, "
+            f"{flap_sent[1] / flap_wall / 1e9:.3f} GB/s over the wall), removed "
+            f"{flap_sent[2]}; {changed} chunks of its chains changed while it was "
+            f"down; its B1 items {flap_items}")
+        expect(flap_sent[0] == changed,
+               f"[23] the flap's resync sent {flap_sent[0]} chunks, {changed} changed")
+        expect(flap_items >= flap_sent[0],
+               f"[23] node {flap} batched {flap_items} B1 items for "
+               f"{flap_sent[0]} device-size REPLACEs")
+
+        # 4. disk replaced: another node restarts empty; every chunk of its
+        # replicated targets comes back by full resync, its EC chains empty
+        cc.reset_launches()
+        before = resync_counts(cluster)
+        t0 = time.perf_counter()
+        await cluster.restart_storage_node_empty(wipe)
+        call_s = time.perf_counter() - t0
+        await wait_state(lambda: fully_redundant(cluster), 300.0,
+                         "full redundancy after the empty restart")
+        wipe_wall = time.perf_counter() - t0
+        wipe_sent = resync_sent(cluster, before, wipe)
+        wipe_items = cluster.storage[wipe].node.codec.batched_items
+        steps["wipe"] = dict(cc.launches)
+        held = sum(1 for k in final
+                   if any(t.node_id == wipe for t in cluster.chain(lay.chain_of(k[1])).targets))
+        log(f"[23] empty disk: node {wipe} restart_storage_node_empty {call_s:.3f} s "
+            f"(kill, detection, wipe, restart, heads back), full redundancy "
+            f"{wipe_wall:.3f} s after the call; resync REPLACEd {wipe_sent[0]} chunks "
+            f"({wipe_sent[1] / 2**20:.1f} MiB, {wipe_sent[1] / wipe_wall / 1e9:.3f} GB/s "
+            f"over the wall); its chains hold {held} chunks; its B1 items {wipe_items}")
+        expect(wipe_sent[0] == held, f"[23] the empty disk's resync sent "
+               f"{wipe_sent[0]} chunks, its chains hold {held}")
+        expect(wipe_items >= wipe_sent[0],
+               f"[23] node {wipe} batched {wipe_items} B1 items for "
+               f"{wipe_sent[0]} device-size REPLACEs")
+
+        # 5. scrub until nothing is left to repair; a shard bit-rotted on
+        # disk after the first repairing scan (before it, that stripe would
+        # have lost three shards, past RAID-6's two)
+        cc.reset_launches()
+        stripe_lens = {s: K * shard_bytes for s in range(stripes)}
+        sched.add_target("recovery", elay, 10, stripe_lens)
+        wiped = tuple(s for s in range(K + M) if cluster.chain(
+            elay.shard_chain(0, s)).targets[0].node_id == wipe)
+        rot = (RECOVERY_ROT_STRIPE, next(s for s in range(K + M) if s not in wiped
+                                         and s not in lost_slots))
+        reports, rotted = [], False
+        t0 = time.perf_counter()
+        for _ in range(6):
+            before = (sched.stats.shards_lost, sched.stats.shards_corrupt,
+                      sched.stats.stripes_scanned)
+            reports.append(await sched.scan_once())
+            expect(sched.stats.stripes_scanned - before[2] == stripes,
+                   f"[23] a scrub tick scanned {sched.stats.stripes_scanned - before[2]} "
+                   f"stripes of {stripes}")
+            clean = (sched.stats.shards_lost, sched.stats.shards_corrupt) == before[:2]
+            if clean and rotted:
+                break
+            if not rotted and reports[-1].repaired_shards:
+                expect(cluster.corrupt_chunk_on_disk(
+                    elay.shard_chain(*rot), elay.shard_chunk(10, *rot)),
+                    f"[23] stripe {rot[0]} slot {rot[1]} is not on disk")
+                rotted = True
+        s_wall = time.perf_counter() - t0
+        st = sched.status()
+        steps["scrub"] = dict(cc.launches)
+        rebuilt = st["bytes_repaired"]
+        log(f"[23] scrub: {len(reports)} scans in {s_wall:.3f} s; repaired "
+            f"{st['repaired_shards']} shards ({st['reduced_shards']} reduced, "
+            f"{st['fallback_shards']} full-k) of {st['repaired_stripes']} stripes, "
+            f"lost {st['shards_lost']}, corrupt {st['shards_corrupt']}, failed "
+            f"{st['stripes_failed']}; {st['bytes_read'] / 2**20:.1f} MiB of helper "
+            f"bytes for {rebuilt / 2**20:.1f} MiB rebuilt: {rebuilt / s_wall / 1e9:.3f} "
+            f"GB/s rebuilt, {st['bytes_read'] / s_wall / 1e9:.3f} GB/s of helper bytes")
+        expect(rotted and st["stripes_failed"] == 0
+               and st["shards_lost"] == stripes * len(wiped)
+               and st["shards_corrupt"] == 1
+               and st["repaired_shards"] == stripes * len(wiped) + 1
+               and st["reduced_shards"] >= 1,
+               f"[23] scrub: {st}")
+        cc.reset_launches()
+        await ec_read_all(ec, elay, 10, range(stripes), K * shard_bytes, ec_data,
+                          ec_crc, "read after the scrub", phase=23)
+        add_launches(steps["scrub"], cc.launches)
+        total: dict = {}
+        for part in steps.values():
+            add_launches(total, part)
+
+        # the guarantees: every acked write on every replica, every stripe whole
+        expect(fully_redundant(cluster), "[23] a chain lost redundancy before the checks")
+        checked = await asyncio.to_thread(check_replicas, cluster, lay, expected, b1)
+        lost = {s: tuple(sorted(wiped + ((rot[1],) if s == rot[0] else ())))
+                for s in range(stripes)}
+        await asyncio.to_thread(ec_check_repaired, cluster, elay, 10, lost, ec_data,
+                                ec_crc, "scrub repair", 23)
+        per_node = [(nid, ss.node.codec.batches, ss.node.codec.batched_items,
+                     ss.node.aio.completed if ss.node.aio is not None else None)
+                    for nid, ss in sorted(cluster.storage.items())]
+        log(f"[23] per node since its (re)start (B1 batches, items, items per batch, "
+            f"reads): " + ", ".join(
+                f"n{nid} {b}, {it}, {it / max(b, 1):.2f}, "
+                + (f"io_uring {a}" if a is not None else "thread pool")
+                for nid, b, it, a in per_node))
+        log(f"[23] checks: {checked} replica chunks ({len(expected)} chunks x 3) "
+            f"byte for byte from each target's engine, ChunkMeta committed with the "
+            f"native host CRC, full chunks equal to plain B1; no replica holds a chunk "
+            f"its chain's others lack; {stripes} stripes whole, "
+            f"{sum(map(len, lost.values()))} rebuilt shards equal to the plain "
+            f"encode's; codec {codec.codec_counts}")
+        log(f"[23] launches: " + "; ".join(
+            f"{k} {({n: c for n, c in v.items() if c})}" for k, v in steps.items())
+            + f"; phase {total}")
+        if dev.type == "cuda":
+            from t3fs_torch.benchmarks.devbench import card_line
+
+            log(f"[23] {card_line()}")
+            expect_routes(codec, ("cuda-encode-words", "cuda-decode-words",
+                                  "cuda-repair-words"))
+            for name in ("crc_words", "rs_raid6_words", "rs_reconstruct_words",
+                         "repair_words"):
+                expect(total.get(name, 0) > 0, f"[23] the recovery drill launched no {name}")
+            expect(steps["flap"].get("crc_words", 0) > 0
+                   and steps["wipe"].get("crc_words", 0) > 0,
+                   f"[23] a resync launched no B1: {steps}")
+        return total
+    finally:
+        await ec.close()
+        await cluster.stop()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2248,6 +2682,7 @@ def main() -> int:
             phase_chain(dev, pipeline, CHAIN_FILE_BYTES, CHUNK_BYTES)))
     chain_device_times(dev, CHUNK_BYTES)
     main_runs.append(asyncio.run(phase_ec_stripes(dev)))
+    main_runs.append(asyncio.run(phase_recovery(dev)))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -147,8 +147,8 @@ class StorageNode:
         self.frag_store = FragmentStore(combine=self.codec.combine)
         self._read_sem: asyncio.Semaphore | None = None
         # io_uring read pipeline (AioReadWorker.h:21-44 analog); started by
-        # the fabric when the kernel supports it, else large reads keep the
-        # thread-pool path
+        # the server or the fabric when the kernel supports it, else large
+        # reads keep the thread-pool path
         self.aio = None
         self.targets: dict[int, StorageTarget] = {}
         # local target states reported in heartbeats (failure-detection input,

@@ -26,7 +26,8 @@ bad = sorted(m for m in sys.modules
              or m.startswith("t3fs."))
 print(len(mods), bad)
 assert not bad, bad
-for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils"):
+for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
+            "monitor", "core"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 """
 
@@ -47,6 +48,18 @@ def test_port_sources_name_no_jax_or_t3fs_module():
                 mod = s.split()[1]
                 assert mod.split(".")[0] not in ("jax", "jaxlib", "t3fs"), \
                     f"{path}: {s}"
+
+
+async def _default_cluster():
+    """The port's LocalCluster on the defaults: every StorageServer's
+    checksum backend is the CUDA one, so start() raises."""
+    from t3fs_torch.testing.cluster import LocalCluster
+
+    cluster = LocalCluster(num_nodes=1, replicas=1)
+    try:
+        await cluster.start()
+    finally:
+        await cluster.stop()
 
 
 async def _default_fabric(client_writes: bool = False):
@@ -83,6 +96,7 @@ def _entry_points():
     from t3fs_torch.parallel import codec_mesh
     from t3fs_torch.storage.codec_backend import (
         CudaChecksumBackend, make_checksum_backend)
+    from t3fs_torch.storage.server import StorageServer
     from t3fs_torch.storage.service import StorageNode
 
     return [
@@ -147,16 +161,47 @@ def _entry_points():
         lambda: asyncio.run(_default_fabric(client_writes=True)),
         # the EC client: its default codec is TorchECCodec() on "cuda"
         lambda: ECStorageClient(None),
+        # the storage cluster under mgmtd: a storage server, and the
+        # cluster that starts one a node
+        lambda: StorageServer(1, "127.0.0.1:1"),
+        lambda: asyncio.run(_default_cluster()),
     ]
 
 
-@pytest.mark.parametrize("i", range(53))
+@pytest.mark.parametrize("i", range(55))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 53
+    assert len(entries) == 55
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
+
+
+def test_cluster_entry_points_name_cuda_by_default():
+    """StorageConfig, StorageServer and LocalCluster default to the CUDA
+    checksum backend; the config accepts every name make_checksum_backend
+    maps, and a backend instance reaches the node as it is."""
+    import inspect
+
+    from t3fs_torch.storage.codec_backend import CpuChecksumBackend
+    from t3fs_torch.storage.server import StorageConfig, StorageServer
+    from t3fs_torch.testing.cluster import LocalCluster
+    from t3fs_torch.utils.config import ConfigError
+
+    assert StorageConfig().checksum_backend == "cuda"
+    for fn in (StorageServer.__init__, LocalCluster.__init__):
+        assert inspect.signature(fn).parameters[
+            "checksum_backend"].default == "cuda"
+    cfg = StorageConfig()
+    for name in ("gpu", "device", "tpu", "cpu", "null", "cuda"):
+        cfg.update({"checksum_backend": name}, hot_only=False)
+    with pytest.raises(ConfigError):
+        cfg.update({"checksum_backend": "fpga"}, hot_only=False)
+    backend = CpuChecksumBackend()
+    ss = StorageServer(1, "127.0.0.1:1", checksum_backend=backend)
+    assert ss.node.codec is backend and ss.cfg.checksum_backend == "cpu"
+    ss = StorageServer(1, "127.0.0.1:1", checksum_backend=CpuChecksumBackend)
+    assert isinstance(ss.node.codec, CpuChecksumBackend)
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
