@@ -138,6 +138,29 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      against the plain encode; each successor's resync REPLACEs batched on
      B1; prints the walls, the bytes resynced and GB/s, the scrub's repairs,
      helper bytes and GB/s, each node's B1 batches and reads, the launches
+ 24  the file system and a parallel checkpoint (3FS's checkpointing
+     workload): the port's LocalCluster with its meta service (MetaStore on
+     the cluster's KV, MetaServer with its GC every 0.1 s in the same event
+     loop), phase 23's layout and knobs.  FileSystem: mkdirs, a seeded
+     256 MiB file at 4 MiB chunks (B1 on every hop), stat, read back,
+     rename across directories, readdir, unlink, until meta's GC has
+     removed every chunk from every replica.  Then t3fs_torch/ckpt at
+     ckpt_bench's code and admission (RS(8+2), 256 KiB shards, window 8,
+     per-chain 2) over a seeded 1 GiB tree (16 leaves of 64 MiB, uint8,
+     float32 and int64; leaves of 4096 B, 1 000 003 B and 3 MiB + 17 B
+     and an int64 scalar: partial stripes, trimmed tails): save (every
+     stripe one fused encode-and-CRC call on a cuda-* route, the host CRC
+     on the trimmed tails only), restore and restore_shard x 4 (dtype,
+     shape and bytes), a re-save the CRC probe skips whole, one node
+     fail-stopped (two EC chains, RAID-6's limit) and a degraded restore
+     (B3 + B1), the node back on an empty disk and scrub(repair=True)
+     until clean, every stored shard against the leaves, the plain encode,
+     the native host CRC and plain B1, then a second step and
+     gc(keep_last=1) with none of step 1's chunks left; prints the walls
+     and MB/s of logical bytes, the manifest commit, codec flushes and
+     stripes a flush, each node's B1 batches and the launches.  Then
+     `t3fs_torch.benchmarks.ckpt_bench --runs 1 --kill --json` in this
+     process, its lines checked
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -146,7 +169,7 @@ each main-path run (phases 3, 4, 7, 8, 9, 12, 13 and 17's codec calls, the
 bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
 launches would drown the codec paths' counts, each mesh rank's one run of
 its steps in phase 19, summed over the ranks, phase 20's step, each
-pass of phase 21, each step of phase 22 and phase 23 after its cluster's
+pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
@@ -217,6 +240,18 @@ RECOVERY_INFLIGHT = 16         # chunk writes in flight
 RECOVERY_FLAP_NODE = 2         # fail-stops, restarts on its old disk
 RECOVERY_WIPE_NODE = 4         # restarts on an empty disk
 RECOVERY_ROT_STRIPE = 5        # one shard of it bit-rotted on disk
+
+# phase 24: the file system and a parallel checkpoint (ckpt_bench's code
+# and admission), a 1 GiB tree: a cut of a real checkpoint's size
+CKPT_CHUNK = 256 << 10         # RS(8+2) shards of 256 KiB: 2 MiB stripes
+CKPT_BIG_LEAVES = 16           # leaves of CKPT_LEAF_BYTES
+CKPT_LEAF_BYTES = 64 << 20
+CKPT_ODD_LEAVES = (4096, 1_000_003, (3 << 20) + 17)   # partial stripes, trimmed tails
+CKPT_STEP2_LEAVES = 4          # the second step: 4 leaves of CKPT_LEAF_BYTES
+CKPT_READERS = 4               # restore_shard readers
+CKPT_NS_FILE = 256 << 20       # the namespace's file, CHUNK_BYTES chunks
+CKPT_WINDOW = 8                # stripes in flight (ckpt_bench's default)
+CKPT_PER_CHAIN = 2             # chunk writes in flight per chain
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -2240,14 +2275,14 @@ def fully_redundant(cluster) -> bool:
                for c in cluster.mgmtd.state.routing().chains.values())
 
 
-async def wait_state(pred, timeout_s: float, what: str) -> float:
+async def wait_state(pred, timeout_s: float, what: str, phase: int = 23) -> float:
     """Poll `pred` every 10 ms until it holds; the seconds it took.  A
     deadline, never a fixed sleep: detection and resync run on the
     cluster's wall clock."""
     t0 = time.perf_counter()
     while not pred():
         expect(time.perf_counter() - t0 < timeout_s,
-               f"[23] no {what} within {timeout_s} s")
+               f"[{phase}] no {what} within {timeout_s} s")
         await asyncio.sleep(0.01)
     return time.perf_counter() - t0
 
@@ -2623,6 +2658,492 @@ async def phase_recovery(dev: torch.device, chunk_bytes: int = CHUNK_BYTES,
         await cluster.stop()
 
 
+# --- phase 24: the file system and a parallel checkpoint ---------------------
+
+def ckpt_tree(rng: np.random.Generator, leaf_bytes: int, big: int,
+              odd: tuple[int, ...]) -> dict:
+    """The checkpoint's seeded tree: `big` leaves of `leaf_bytes` (uint8,
+    float32, int64 and uint8 in turn, so dtype and shape must come back),
+    uint8 leaves of the `odd` lengths (partial stripes, trimmed tails) and
+    an int64 scalar."""
+    layers = {}
+    for i in range(big):
+        raw = rng.integers(0, 256, leaf_bytes, dtype=np.uint8)
+        arr = (raw.view(np.float32).reshape(-1, 1024) if i % 4 == 1 else
+               raw.view(np.int64).reshape(256, -1) if i % 4 == 2 else raw)
+        layers[f"l{i:02d}"] = {"w": arr}
+    return {"layers": layers,
+            "odd": [rng.integers(0, 256, n, dtype=np.uint8) for n in odd],
+            "step": np.int64(7)}
+
+
+def leaf_bytes_of(x) -> np.ndarray:
+    """A leaf's bytes as a flat uint8 view (NaN payloads compare as bytes)."""
+    return np.ascontiguousarray(np.asarray(x)).reshape(-1).view(np.uint8)
+
+
+def same_leaves(tree, have: dict) -> bool:
+    """Every leaf of `tree` in `have` ({path: array}) with its dtype, shape
+    and bytes."""
+    from t3fs_torch.ckpt import flatten_tree
+
+    want = dict(flatten_tree(tree)[0])
+    if want.keys() != have.keys():
+        return False
+    for path in want:
+        a, b = np.asarray(want[path]), np.asarray(have[path])
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(leaf_bytes_of(a), leaf_bytes_of(b)):
+            return False
+    return True
+
+
+def ckpt_expected(tree, k: int, m: int, cs: int, dev: torch.device) -> dict:
+    """path -> (stored lengths (stripes, k+m), parity (stripes, m, cs) by
+    the plain RAID-6 encode, the native host CRC of each stored shard and
+    plain B1 of each zero-padded shard, both (stripes, k+m) uint32)."""
+    from t3fs_torch.ckpt import flatten_tree
+    from t3fs_torch.ops import codec as host
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.tables import codec_tables
+
+    out = {}
+    enc_tables = codec_tables(1, k, m, device=dev)
+    for path, leaf in flatten_tree(tree)[0]:
+        flat = leaf_bytes_of(leaf)
+        n = -(-len(flat) // (k * cs))
+        padded = np.zeros((n, k, cs), dtype=np.uint8)
+        padded.reshape(-1)[:len(flat)] = flat
+        words = torch.from_numpy(padded.view(np.int32)).to(dev)
+        parity = torch.cat([cc.rs_raid6_words_plain(part, enc_tables)
+                            for part in words.split(8)]).cpu().numpy().view(np.uint8)
+        full = np.concatenate([padded, parity], axis=1)
+        b1 = plain_shard_crcs(full, dev)
+        lens = np.zeros((n, k + m), dtype=np.int64)
+        host_crc = np.zeros((n, k + m), dtype=np.uint32)
+        for s in range(n):
+            for j in range(k + m):
+                ln = cs if j >= k else max(0, min(cs, len(flat) - (s * k + j) * cs))
+                lens[s, j] = ln
+                if ln:
+                    host_crc[s, j] = host.crc32c(full[s, j, :ln].tobytes())
+        out[path] = (lens, parity, host_crc, b1)
+    return out
+
+
+@contextlib.contextmanager
+def host_crc_calls():
+    """The lengths the host CRC is called on, from code that imports it at
+    call time (ECStorageClient.encode_stripe's trimmed tails)."""
+    from t3fs_torch.ops import codec as host
+
+    orig, seen = host.crc32c, []
+
+    def counted(data, *args, **kwargs):
+        seen.append(len(data))
+        return orig(data, *args, **kwargs)
+    host.crc32c = counted
+    try:
+        yield seen
+    finally:
+        host.crc32c = orig
+
+
+def check_ckpt_shards(cluster, lay, manifest, tree, expected: dict) -> int:
+    """Every shard of every stripe of `manifest` on its chain's engine: a
+    hole absent, every other shard committed, its bytes equal to the leaf's
+    (data) or to the plain encode's (parity), its ChunkMeta.checksum equal
+    to the native host CRC of those bytes and, for a whole shard, to plain
+    B1; the manifest's CRCs equal to the same.  Runs in a thread."""
+    from t3fs_torch.ckpt import flatten_tree
+
+    leaves = dict(flatten_tree(tree)[0])
+    k, cs, checked = lay.k, lay.chunk_size, 0
+    for lf in manifest.leaves:
+        lens, parity, host_crc, b1 = expected[lf.path]
+        flat = leaf_bytes_of(leaves[lf.path])
+        for s in range(lf.num_stripes):
+            expect(lf.stripe_crcs(lay, s) == [int(c) for c in host_crc[s]],
+                   f"[24] {lf.path} stripe {s}: manifest CRCs differ from the host CRC")
+            for j in range(lay.k + lay.m):
+                engine = ec_target_engine(cluster, lay.shard_chain(s, j))
+                cid = lay.shard_chunk(lf.inode, s, j)
+                meta = engine.get_meta(cid)
+                ln = int(lens[s, j])
+                if not ln:
+                    expect(meta is None, f"[24] {lf.path} stripe {s} hole {j} stored")
+                    continue
+                want = (flat[(s * k + j) * cs:(s * k + j) * cs + ln] if j < k
+                        else parity[s, j - k]).tobytes()
+                crc = int(host_crc[s, j])
+                expect(meta is not None and meta.checksum == crc
+                       and meta.update_ver == meta.commit_ver and meta.length == ln
+                       and (ln < cs or crc == int(b1[s, j])),
+                       f"[24] {lf.path} stripe {s} shard {j}: {meta} != native "
+                       f"{crc:#x} / plain B1 {int(b1[s, j]):#x}, {ln} B, committed")
+                expect(engine.read(cid) == want,
+                       f"[24] {lf.path} stripe {s} shard {j}: stored bytes differ")
+                checked += 1
+    return checked
+
+
+async def phase_ckpt(dev: torch.device, leaf_bytes: int = CKPT_LEAF_BYTES,
+                     big_leaves: int = CKPT_BIG_LEAVES,
+                     odd: tuple[int, ...] = CKPT_ODD_LEAVES,
+                     chunk_bytes: int = CKPT_CHUNK,
+                     ns_bytes: int = CKPT_NS_FILE,
+                     ns_chunk: int = CHUNK_BYTES,
+                     step2_leaves: int = CKPT_STEP2_LEAVES) -> dict:
+    """The file system and a parallel checkpoint through the port's entry
+    points, on the port's LocalCluster with its meta service (phase 23's
+    layout: 5 nodes, chains 1-5 of 3 replicas, EC chains 6-15 of one, a
+    CudaChecksumBackend a node on `dev`, heartbeat timeout 0.6 s).
+
+    The namespace: FileSystem.mkdirs, a seeded `ns_bytes` file written at
+    `ns_chunk` chunks (B1 on every hop), stat, read back, renamed across
+    directories, readdir, unlinked; meta's GC (a task in the cluster's
+    event loop) must remove every chunk from every replica.  The
+    checkpoint, at ckpt_bench's code and admission (RS(8+2), `chunk_bytes`
+    shards, window 8, per-chain 2): save (every stripe one fused
+    encode-and-CRC call on a cuda-* route, no whole shard's CRC on the
+    host), restore, restore_shard with CKPT_READERS readers, a re-save
+    that the CRC probe skips whole, one node fail-stopped (two EC chains:
+    the m = 2 limit) and a degraded restore (B3 + B1), the node back on an
+    empty disk and scrub(repair=True) until clean, every shard's bytes and
+    stored checksum against the plain encode and the native host CRC,
+    then a second step and gc(keep_last=1).  Returns the phase's
+    launches."""
+    from t3fs_torch.ckpt import (CheckpointReader, CheckpointStore,
+                                 CheckpointWriter, flatten_tree)
+    from t3fs_torch.client.ec_client import ECLayout, ECStorageClient
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.fuse.vfs import FileSystem
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.codec_backend import (
+        DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
+    from t3fs_torch.storage.native_engine import NativeChunkEngine
+    from t3fs_torch.storage.types import ChunkId
+    from t3fs_torch.testing.cluster import LocalCluster
+
+    cs, on_card = chunk_bytes, dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 24)
+    # the data and what every shard must hold, before the cluster starts:
+    # nothing may stall its event loop (a node fences itself after 0.3 s
+    # without a heartbeat)
+    t0 = time.perf_counter()
+    tree = ckpt_tree(rng, leaf_bytes, big_leaves, odd)
+    tree2 = ckpt_tree(rng, leaf_bytes, step2_leaves, ())
+    ns_data = rng.integers(0, 256, ns_bytes, dtype=np.uint8).tobytes()
+    expected = ckpt_expected(tree, K, M, cs, dev)
+    logical = sum(leaf_bytes_of(x).nbytes for _, x in flatten_tree(tree)[0])
+    logical2 = sum(leaf_bytes_of(x).nbytes for _, x in flatten_tree(tree2)[0])
+    trimmed = sum(int(((lens[:, :K] > 0) & (lens[:, :K] < cs)).sum())
+                  for lens, *_ in expected.values())
+    stripes = sum(lens.shape[0] for lens, *_ in expected.values())
+    log(f"[24] tree: {big_leaves} leaves of {leaf_bytes >> 20} MiB (uint8, float32, "
+        f"int64), leaves of {', '.join(map(str, odd))} B and an int64 scalar: "
+        f"{logical} B ({logical / 2**30:.3f} GiB, a cut of a real checkpoint), "
+        f"{stripes} RS({K}+{M}) stripes of {K} x {cs >> 10} KiB, {trimmed} trimmed "
+        f"tail shards; data, plain parity and CRCs made in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    cluster = LocalCluster(num_nodes=5, replicas=3, num_chains=5, ec_chains=10,
+                           with_meta=True, heartbeat_timeout_s=0.6,
+                           checksum_backend=lambda: CudaChecksumBackend(device=dev))
+    await cluster.start()
+    codec = TorchECCodec(device=dev)
+    ec = ECStorageClient(cluster.sc, codec=codec)
+    fs = FileSystem(cluster.mc, cluster.sc)
+    try:
+        expect(all(isinstance(t.engine, NativeChunkEngine)
+                   for ss in cluster.storage.values() for t in ss.node.targets.values()),
+               "[24] a target is not on the native engine")
+        expect(cluster.meta is not None and cluster.mc is not None,
+               "[24] the cluster started no meta service")
+        lay = ECLayout.create(k=K, m=M, chunk_size=cs, chains=list(range(6, 16)))
+        victim = 3
+        lost = tuple(s for s in range(K + M) if cluster.chain(
+            lay.shard_chain(0, s)).targets[0].node_id == victim)
+        sizes = [n for n in (ns_chunk, cs) if n >= DEFAULT_MIN_DEVICE_BYTES]
+        for ss in cluster.storage.values():
+            await asyncio.to_thread(ss.node.codec.warmup, sizes)
+        codec.warmup_decode([(tuple(s for s in range(K + M) if s not in lost)[:K], lost)],
+                            cs, K, M)
+        await ec.encode_stripe(lay, bytes(K * cs))
+        log(f"[24] LocalCluster with meta: 5 nodes, chains 1-5 of 3 replicas, EC "
+            f"chains 6-15 of one; MetaServer GC every {cluster.meta.gc_period_s} s "
+            f"in the cluster's event loop; heartbeat timeout "
+            f"{cluster.mgmtd_cfg.heartbeat_timeout_s} s")
+        steps: dict[str, dict] = {}
+
+        # 1. the namespace
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        await fs.mkdirs("/ns/a")
+        await fs.mkdirs("/ns/b")
+        ino = await fs.write_file("/ns/a/big", ns_data, chunk_size=ns_chunk)
+        w_wall = time.perf_counter() - t0
+        expect((await fs.stat("/ns/a/big")).length == ns_bytes == ino.length,
+               f"[24] stat: length {ino.length} != {ns_bytes}")
+        t0 = time.perf_counter()
+        back = await fs.read_file("/ns/a/big")
+        r_wall = time.perf_counter() - t0
+        expect(back == ns_data, "[24] the namespace file read back differs")
+        del back
+        await fs.rename("/ns/a/big", "/ns/b/big")
+        expect([e.name for e in await fs.readdir("/ns/b")] == ["big"]
+               and await fs.readdir("/ns/a") == [], "[24] readdir after the rename")
+        expect((await fs.stat("/ns/b/big")).inode_id == ino.inode_id,
+               "[24] the rename changed the inode")
+        flay = ino.layout
+        n_chunks = -(-ns_bytes // ns_chunk)
+
+        def ns_present() -> int:
+            return sum(cluster_engine(cluster, t).get_meta(ChunkId(ino.inode_id, i))
+                       is not None for i in range(n_chunks)
+                       for t in cluster.chain(flay.chain_of(i)).targets)
+        expect(ns_present() == 3 * n_chunks,
+               f"[24] {ns_present()} replica chunks of the file, not {3 * n_chunks}")
+        gc0 = cluster.meta.gc_count
+        t0 = time.perf_counter()
+        await fs.unlink("/ns/b/big")
+        await wait_state(lambda: ns_present() == 0 and cluster.meta.gc_count > gc0,
+                         30.0, "GC of the unlinked file's chunks", phase=24)
+        gc_wall = time.perf_counter() - t0
+        steps["namespace"] = dict(cc.launches)
+        log(f"[24] namespace: a {ns_bytes >> 20} MiB file of {ns_chunk >> 20} MiB chunks "
+            f"on chain {flay.chains} (x3) written in {w_wall:.3f} s "
+            f"({ns_bytes / w_wall / 1e6:.1f} MB/s), read back in {r_wall:.3f} s "
+            f"({ns_bytes / r_wall / 1e6:.1f} MB/s); stat, rename across directories, "
+            f"readdir; unlink -> every replica's chunks gone {gc_wall:.3f} s later "
+            f"(meta GC)")
+
+        # 2. save
+        writer = CheckpointWriter(ec, fs, lay, "/ckpt/run", window=CKPT_WINDOW,
+                                  per_chain=CKPT_PER_CHAIN)
+        reader = CheckpointReader(ec, fs, "/ckpt/run", window=CKPT_WINDOW)
+        store = CheckpointStore(fs, "/ckpt/run")
+        commits: list[float] = []
+        commit = writer.store.commit
+
+        async def timed_commit(manifest):
+            t = time.perf_counter()
+            try:
+                return await commit(manifest)
+            finally:
+                commits.append(time.perf_counter() - t)
+        writer.store.commit = timed_commit
+        cc.reset_launches()
+        c0 = (codec.flushes, codec.batched_items, dict(codec.codec_counts))
+        nodes0 = {nid: (ss.node.codec.batches, ss.node.codec.batched_items)
+                  for nid, ss in cluster.storage.items()}
+        with host_crc_calls() as host_lens:
+            t0 = time.perf_counter()
+            stats = await writer.save(1, tree, resume=False)
+            save_wall = time.perf_counter() - t0
+        flushes, items = codec.flushes - c0[0], codec.batched_items - c0[1]
+        routes = {r: n - c0[2].get(r, 0) for r, n in codec.codec_counts.items()
+                  if n - c0[2].get(r, 0)}
+        steps["save"] = dict(cc.launches)
+        expect(stats.stripes_total == stripes and stats.stripes_skipped == 0
+               and stats.shards_retried == 0, f"[24] save: {stats}")
+        expect(items == stripes and all(r.startswith("cuda-") for r in routes),
+               f"[24] save: {items} codec items for {stripes} stripes, routes {routes}")
+        expect(len(host_lens) == trimmed and all(n < cs for n in host_lens),
+               f"[24] save: host CRC on {len(host_lens)} shards {host_lens[:8]}, "
+               f"the {trimmed} trimmed tails expected")
+        manifest = await store.load(1)
+        expect(manifest.total_bytes() == logical, "[24] the manifest's byte count")
+        per_node = {nid: (ss.node.codec.batches - nodes0[nid][0],
+                          ss.node.codec.batched_items - nodes0[nid][1])
+                    for nid, ss in sorted(cluster.storage.items())}
+        log(f"[24] save: {stats.stripes_total} stripes, {stats.shards_written} shards "
+            f"({stats.bytes_written / 2**20:.1f} MiB stored) in {save_wall:.3f} s: "
+            f"{logical / save_wall / 1e6:.1f} MB/s of logical bytes; manifest commit "
+            f"(temp file + rename) {commits[-1] * 1e3:.1f} ms; codec {flushes} flushes, "
+            f"{items / max(flushes, 1):.2f} stripes a flush, routes {routes}; host CRC "
+            f"on {len(host_lens)} trimmed tails ({sum(host_lens)} B), none on a whole "
+            f"shard; B1 batches, items a batch per node: " + ", ".join(
+                f"n{nid} {b} {it / max(b, 1):.2f}" for nid, (b, it) in per_node.items()))
+
+        # 3. restore; 4. restore_shard with CKPT_READERS readers
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        got = await reader.restore()
+        restore_wall = time.perf_counter() - t0
+        expect(await asyncio.to_thread(same_leaves, tree, dict(flatten_tree(got)[0])),
+               "[24] restore: a leaf's dtype, shape or bytes differ")
+        del got
+        t0 = time.perf_counter()
+        parts = await asyncio.gather(*(reader.restore_shard(i, CKPT_READERS)
+                                       for i in range(CKPT_READERS)))
+        shard_wall = time.perf_counter() - t0
+        paths = [p for part in parts for p in part]
+        merged = {p: a for part in parts for p, a in part.items()}
+        expect(len(paths) == len(set(paths)) == len(manifest.leaves),
+               f"[24] restore_shard: {len(paths)} leaves, {len(set(paths))} distinct")
+        expect(await asyncio.to_thread(same_leaves, tree, merged),
+               "[24] restore_shard: a leaf differs")
+        del parts, merged
+        steps["restore"] = dict(cc.launches)
+        log(f"[24] restore: {restore_wall:.3f} s, {logical / restore_wall / 1e6:.1f} "
+            f"MB/s of logical bytes; restore_shard x{CKPT_READERS} readers (disjoint, "
+            f"complete) {shard_wall:.3f} s, {logical / shard_wall / 1e6:.1f} MB/s")
+
+        # 5. a re-save of the same step: the CRC probe skips every stripe
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        again = await writer.save(1, tree)
+        resave_wall = time.perf_counter() - t0
+        expect(again.stripes_skipped == again.stripes_total == stripes
+               and again.shards_written == 0, f"[24] re-save: {again}")
+        steps["resave"] = dict(cc.launches)
+        log(f"[24] re-save of step 1: all {again.stripes_skipped} stripes skipped by "
+            f"the CRC probe, {again.shards_skipped} shards, {resave_wall:.3f} s")
+
+        # 6. a node fail-stops (two EC chains: RAID-6's limit); degraded restore
+        await cluster.kill_storage_node(victim)
+        await wait_state(lambda: all(
+            cluster.chain(lay.shard_chain(0, s)).head() is None for s in lost),
+            30.0, "EC chains of the killed node out of service", phase=24)
+        await cluster.mgmtd_client.refresh()
+        cc.reset_launches()
+        dec0 = codec.codec_counts.get("cuda-decode-words", 0)
+        t0 = time.perf_counter()
+        got = await reader.restore()
+        degraded_wall = time.perf_counter() - t0
+        expect(await asyncio.to_thread(same_leaves, tree, dict(flatten_tree(got)[0])),
+               "[24] degraded restore: a leaf differs")
+        del got
+        steps["degraded"] = dict(cc.launches)
+        decodes = codec.codec_counts.get("cuda-decode-words", 0) - dec0
+        expect(decodes > 0 or not on_card, "[24] the degraded restore decoded nothing")
+        log(f"[24] degraded restore, node {victim} down (slots {lost}): "
+            f"{degraded_wall:.3f} s, {logical / degraded_wall / 1e6:.1f} MB/s of logical "
+            f"bytes, {decodes} fused decode calls")
+
+        # 7. the node back on an empty disk (its replicated chains resync,
+        # its EC chains come back empty); scrub until nothing is left
+        shutil.rmtree(cluster.node_root(victim), ignore_errors=True)
+        await cluster.start_storage_node(victim)
+        await wait_state(lambda: fully_redundant(cluster), 300.0,
+                         "full redundancy after the empty restart", phase=24)
+        await cluster.mgmtd_client.refresh()
+        cc.reset_launches()
+        reports = []
+        t0 = time.perf_counter()
+        for _ in range(4):
+            reports.append(await reader.scrub(1, repair=True))
+            if not (reports[-1].shards_missing or reports[-1].shards_corrupt):
+                break
+        scrub_wall = time.perf_counter() - t0
+        steps["scrub"] = dict(cc.launches)
+        first, last = reports[0], reports[-1]
+        holes = sum(int((lens[:, list(lost)] == 0).sum()) for lens, *_ in expected.values())
+        expect(first.shards_missing == stripes * len(lost) - holes
+               and first.shards_repaired == first.shards_missing
+               and first.stripes_unrecoverable == 0 and len(reports) == 2
+               and last.shards_missing == last.shards_corrupt == 0,
+               f"[24] scrub: {reports}")
+        rebuilt = first.shards_repaired * cs
+        log(f"[24] scrub: {len(reports)} passes in {scrub_wall:.3f} s, "
+            f"{first.shards_checked} shards checked a pass, {first.shards_missing} "
+            f"missing, {first.shards_repaired} repaired ({rebuilt / 2**20:.1f} MiB, "
+            f"{logical / scrub_wall / 1e6:.1f} MB/s of logical bytes audited, "
+            f"{rebuilt / scrub_wall / 1e6:.1f} MB/s rebuilt), then clean: {last}")
+        checked = await asyncio.to_thread(check_ckpt_shards, cluster, lay, manifest,
+                                          tree, expected)
+        log(f"[24] checks: {checked} stored shards byte for byte from each engine "
+            f"against the leaves and the plain encode, ChunkMeta committed with the "
+            f"native host CRC (whole shards also plain B1), holes absent, the "
+            f"manifest's CRCs the same")
+
+        # 8. a second step, then gc(keep_last=1): step 1's chunks go
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        stats2 = await writer.save(2, tree2)
+        save2_wall = time.perf_counter() - t0
+        got = await reader.restore(2)
+        expect(await asyncio.to_thread(same_leaves, tree2, dict(flatten_tree(got)[0])),
+               "[24] step 2 restore: a leaf differs")
+        del got
+        t0 = time.perf_counter()
+        report = await store.gc(cluster.sc, keep_last=1)
+        gc_ckpt_wall = time.perf_counter() - t0
+        steps["step2"] = dict(cc.launches)
+        expect(report.steps_removed == [1] and report.steps_kept == [2]
+               and report.bytes_removed == logical
+               and await store.list_steps() == [2], f"[24] gc: {report}")
+
+        def step1_left() -> int:
+            return sum(ec_target_engine(cluster, lay.shard_chain(s, j)).get_meta(
+                lay.shard_chunk(lf.inode, s, j)) is not None
+                for lf in manifest.leaves for s in range(lf.num_stripes)
+                for j in range(K + M))
+        left = await asyncio.to_thread(step1_left)
+        expect(left == 0, f"[24] gc left {left} chunks of step 1")
+        log(f"[24] step 2: {stats2.stripes_total} stripes saved in {save2_wall:.3f} s "
+            f"({logical2 / save2_wall / 1e6:.1f} MB/s), manifest commit {commits[-1] * 1e3:.1f} ms; gc(keep_last=1) removed "
+            f"step 1 ({report.leaves_removed} leaves, {report.bytes_removed} B) in "
+            f"{gc_ckpt_wall:.3f} s, none of its chunks left")
+
+        total: dict = {}
+        for part in steps.values():
+            add_launches(total, part)
+        per_node = [(nid, ss.node.codec.batches, ss.node.codec.batched_items)
+                    for nid, ss in sorted(cluster.storage.items())]
+        log(f"[24] per node since its (re)start (B1 batches, items, items a batch): "
+            + ", ".join(f"n{nid} {b}, {it}, {it / max(b, 1):.2f}"
+                        for nid, b, it in per_node))
+        log(f"[24] codec: {codec.flushes} flushes, {codec.batched_items} items, "
+            f"{codec.batched_items / max(codec.flushes, 1):.2f} a flush; routes "
+            f"{codec.codec_counts}; the byte-path CRC (B6) "
+            f"{'ran' if total.get('crc_bytes') else 'did not run'}: trimmed tails "
+            f"take the host CRC")
+        log(f"[24] walls: save {save_wall:.3f} s, restore {restore_wall:.3f} s, "
+            f"degraded {degraded_wall:.3f} s, scrub {scrub_wall:.3f} s; MB/s of "
+            f"logical bytes: save {logical / save_wall / 1e6:.1f}, restore "
+            f"{logical / restore_wall / 1e6:.1f}, degraded "
+            f"{logical / degraded_wall / 1e6:.1f}, scrub {logical / scrub_wall / 1e6:.1f}")
+        log(f"[24] launches: " + "; ".join(
+            f"{k} {({n: c for n, c in v.items() if c})}" for k, v in steps.items())
+            + f"; phase {total}")
+        if on_card:
+            from t3fs_torch.benchmarks.devbench import card_line
+
+            log(f"[24] {card_line()}")
+            expect_routes(codec, ("cuda-encode-words", "cuda-decode-words"))
+            for name in ("crc_words", "rs_raid6_words", "rs_reconstruct_words"):
+                expect(total.get(name, 0) > 0, f"[24] the checkpoint launched no {name}")
+            expect(steps["save"].get("rs_raid6_words", 0) > 0
+                   and steps["namespace"].get("crc_words", 0) > 0,
+                   f"[24] launches: {steps}")
+        return total
+    finally:
+        await ec.close()
+        await cluster.stop()
+
+
+def phase_ckpt_bench() -> None:
+    """`t3fs_torch.benchmarks.ckpt_bench --runs 1 --kill --json` at its
+    defaults, in this process: its result line parses, every route a cuda-*
+    one, and its metric line last."""
+    from t3fs_torch.benchmarks import ckpt_bench
+
+    rc, lines = run_captured(ckpt_bench.main, ["--runs", "1", "--kill", "--json"],
+                             phase=24)
+    expect(rc == 0 and len(lines) >= 2, f"[24] ckpt_bench exit {rc}")
+    result, metric = json.loads(lines[-2]), json.loads(lines[-1])
+    expect(result["verified"] and result["save_MB_s"] > 0
+           and result["restore_MB_s"] > 0 and result["degraded_restore_MB_s"] > 0
+           and result["codec"] == "cuda"
+           and all(r.startswith("cuda-") for r in result["codec_counts"]),
+           f"[24] ckpt_bench: {result}")
+    expect(set(metric["ckpt_metric"]) == {"rs8+2_save_MB_s", "restore_MB_s",
+                                         "degraded_restore_MB_s"},
+           f"[24] ckpt_bench metric line: {metric}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2683,6 +3204,8 @@ def main() -> int:
     chain_device_times(dev, CHUNK_BYTES)
     main_runs.append(asyncio.run(phase_ec_stripes(dev)))
     main_runs.append(asyncio.run(phase_recovery(dev)))
+    main_runs.append(asyncio.run(phase_ckpt(dev)))
+    phase_ckpt_bench()
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -4,12 +4,13 @@ Reference analog: testing_configs/ single-host cluster launcher (mgmtd + 5
 storage nodes with a generated chain table, testing_configs/README.md) —
 here in-process for tests, with fast failure-detection knobs.
 
-The port of t3fs/testing/cluster.py, storage-only: mgmtd over a MemKVEngine
-plus StorageServers, each node's payload CRCs on the CUDA checksum backend
+The port of t3fs/testing/cluster.py: mgmtd over a MemKVEngine plus
+StorageServers, each node's payload CRCs on the CUDA checksum backend
 unless the caller asks for another one (checksum_backend: a name, or a
 factory called once per node start, e.g. a CudaChecksumBackend on
-device="cpu").  Every node runs in this one process.  The meta service,
-the monitor and the sharded KV are not ported: with_meta, with_monitor,
+device="cpu"), and with with_meta a MetaServer on the same KV (its GC and
+session pruning run as tasks in this event loop).  Every node runs in this
+one process.  The monitor and the sharded KV are not ported: with_monitor,
 kv_shards and with_kv_distributor raise NotImplementedError.
 """
 
@@ -20,9 +21,12 @@ import os
 import shutil
 import tempfile
 
+from t3fs_torch.client.meta_client import MetaClient
 from t3fs_torch.client.mgmtd_client import MgmtdClient
 from t3fs_torch.client.storage_client import StorageClient, StorageClientConfig
 from t3fs_torch.kv.engine import MemKVEngine
+from t3fs_torch.meta.service import MetaServer
+from t3fs_torch.meta.store import ChainAllocator, MetaStore
 from t3fs_torch.mgmtd.service import MgmtdConfig, MgmtdServer, SetChainsReq
 from t3fs_torch.mgmtd.types import ChainInfo, ChainTable, ChainTargetInfo, PublicTargetState
 from t3fs_torch.net.client import Client
@@ -47,13 +51,12 @@ class LocalCluster:
                  with_kv_distributor: bool = False,
                  checksum_backend="cuda"):
         unported = [name for name, on in (
-            ("with_meta", with_meta), ("with_monitor", with_monitor),
-            ("kv_shards", kv_shards), ("with_kv_distributor",
-                                       with_kv_distributor)) if on]
+            ("with_monitor", with_monitor), ("kv_shards", kv_shards),
+            ("with_kv_distributor", with_kv_distributor)) if on]
         if unported:
             raise NotImplementedError(
-                f"LocalCluster({', '.join(unported)}): the meta service, the "
-                "monitor and the sharded KV are not ported yet (ROADMAP A12g)")
+                f"LocalCluster({', '.join(unported)}): the monitor and the "
+                "sharded KV are not ported yet (ROADMAP A12g)")
         self.num_nodes = num_nodes
         self.replicas = replicas
         self.num_chains = num_chains
@@ -78,6 +81,10 @@ class LocalCluster:
         self.seed_read_priors = seed_read_priors
         # every StorageServer's checksum backend: a name or a factory
         self.checksum_backend = checksum_backend
+        self.with_meta = with_meta
+        self.meta: MetaServer | None = None
+        self.meta_rpc: Server | None = None
+        self.mc: MetaClient | None = None
         self.kv = MemKVEngine()
         self.mgmtd_cfg = MgmtdConfig(
             heartbeat_timeout_s=heartbeat_timeout_s,
@@ -154,6 +161,22 @@ class LocalCluster:
             self.mgmtd_client.routing,
             config=StorageClientConfig(retry_backoff_s=0.05, max_retries=12),
             refresh_routing=self.mgmtd_client.refresh)
+
+        if self.with_meta:
+            await self._start_meta()
+
+    async def _start_meta(self) -> None:
+        # stateless meta service on the same transactional KV as mgmtd
+        # (the reference shares one FoundationDB, docs/design_notes.md:7)
+        store = MetaStore(self.kv, ChainAllocator(
+            self.mgmtd_client.routing, default_chunk_size=4096))
+        self.meta = MetaServer(store, self.sc, gc_period_s=0.1)
+        self.meta_rpc = Server()
+        for svc in self.meta.services:
+            self.meta_rpc.add_service(svc)
+        await self.meta_rpc.start()
+        await self.meta.start()
+        self.mc = MetaClient([self.meta_rpc.address])
 
     async def start_storage_node(self, node_id: int,
                                  with_targets: bool = True) -> StorageServer:
@@ -325,6 +348,12 @@ class LocalCluster:
         return self.mgmtd.state.routing().chains[chain_id]
 
     async def stop(self) -> None:
+        if self.mc:
+            await self.mc.close_conn()
+        if self.meta:
+            await self.meta.stop()
+        if self.meta_rpc:
+            await self.meta_rpc.stop()
         if self.sc:
             await self.sc.close()
         if self.mgmtd_client:

@@ -357,7 +357,26 @@ def test_mgmtd_refuses_the_unported_health_puller():
                                   {"kv_shards": 2},
                                   {"with_kv_distributor": True}])
 def test_local_cluster_refuses_unported_branches(knob):
+    """The monitor and the sharded KV are not ported: asking for them
+    raises.  The meta service is: with_meta starts a MetaServer on its own
+    RPC server, and the cluster's MetaClient reaches it."""
+    from t3fs_torch.meta.service import MetaServer
     from t3fs_torch.testing.cluster import LocalCluster
 
-    with pytest.raises(NotImplementedError, match="A12g"):
-        LocalCluster(**knob)
+    if "with_meta" not in knob:
+        with pytest.raises(NotImplementedError, match="A12g"):
+            LocalCluster(**knob)
+        return
+
+    async def body():
+        c = LocalCluster(num_nodes=1, replicas=1, checksum_backend="cpu",
+                         **knob)
+        await c.start()
+        try:
+            assert isinstance(c.meta, MetaServer)
+            assert c.mc.addresses == [c.meta_rpc.address]
+            assert (await c.mc.mkdirs("/d")).inode_id > 1
+            assert [e.name for e in await c.mc.readdir("/")] == ["d"]
+        finally:
+            await c.stop()
+    asyncio.run(body())

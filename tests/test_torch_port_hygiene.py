@@ -27,7 +27,7 @@ bad = sorted(m for m in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
-            "monitor", "core"):
+            "monitor", "core", "meta", "fuse", "ckpt"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 """
 
@@ -50,12 +50,13 @@ def test_port_sources_name_no_jax_or_t3fs_module():
                     f"{path}: {s}"
 
 
-async def _default_cluster():
-    """The port's LocalCluster on the defaults: every StorageServer's
-    checksum backend is the CUDA one, so start() raises."""
+async def _default_cluster(with_meta: bool = False):
+    """The port's LocalCluster on the defaults (with its meta service, if
+    asked): every StorageServer's checksum backend is the CUDA one, so
+    start() raises."""
     from t3fs_torch.testing.cluster import LocalCluster
 
-    cluster = LocalCluster(num_nodes=1, replicas=1)
+    cluster = LocalCluster(num_nodes=1, replicas=1, with_meta=with_meta)
     try:
         await cluster.start()
     finally:
@@ -85,7 +86,7 @@ def _entry_points():
     import asyncio
 
     from t3fs_torch import bench, graft_entry, resolve_device
-    from t3fs_torch.benchmarks import devbench, sort_bench
+    from t3fs_torch.benchmarks import ckpt_bench, devbench, sort_bench
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -165,14 +166,18 @@ def _entry_points():
         # cluster that starts one a node
         lambda: StorageServer(1, "127.0.0.1:1"),
         lambda: asyncio.run(_default_cluster()),
+        # the file system and the checkpoint engine: a cluster with its
+        # meta service, and the checkpoint bench without --cpu
+        lambda: asyncio.run(_default_cluster(with_meta=True)),
+        lambda: ckpt_bench.main(["--runs", "1"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(55))
+@pytest.mark.parametrize("i", range(57))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 55
+    assert len(entries) == 57
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
