@@ -161,6 +161,27 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      stripes a flush, each node's B1 batches and the launches.  Then
      `t3fs_torch.benchmarks.ckpt_bench --runs 1 --kill --json` in this
      process, its lines checked
+ 25  the GraySort-analog through storage, the KVCache store and its tier:
+     (a) sort_bench's job at the reference's multi-process shape (8
+     workers, 32 partitions, 1 MiB chunks; 256 MiB of gensort input, cut
+     from its 1 GiB) on the port's
+     in-process fabric (3 nodes, 1 replica, a CudaChecksumBackend a node:
+     B1 on every chunk of 64 KiB and more), once with the device sorter on
+     the card and once with numpy, each on a fresh fabric: the reference's
+     checks (record count, key XOR, every partition sorted, boundaries in
+     order) and the two runs' OUT files equal byte for byte; prints
+     phase1_s, phase2_s, sort_MB_s, each node's B1 batches and items, the
+     payloads on the nodes' host CRC and the time inside the device sorter.
+     (b) kvcache_bench's phases through KVCacheStore (BASELINE.json config
+     #5) on its fabric (3 nodes, 3 replicas): 2048 blocks of 16 KiB
+     (every CRC on the host: checked), then 512 blocks of one DeepSeek-V3
+     KV block of 16 tokens (1 124 352 B: B1 on every hop, checked); no miss
+     before GC, every key removed; then seeded values read back exactly, a
+     prefix chain's longest_prefix, a miss for every key after GC; prints
+     the bench's IOPS, MB/s and latencies.  (c) `kvcache_fleet_bench
+     --procs 2 --sessions 8 --turns 1 --prompts 16 --blocks 4
+     --admission-ab --json` in this process: its workers run clients only,
+     the host cell on the shm token arena within its window
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -170,7 +191,8 @@ bench run of phase 16, which counts H1 only: its hundreds of B1 and B2
 launches would drown the codec paths' counts, each mesh rank's one run of
 its steps in phase 19, summed over the ranks, phase 20's step, each
 pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
-start and warmups) and read just after; launches
+start and warmups, each sort job and kvcache_bench run of phase 25 after
+its fabric's start and warmup) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -252,6 +274,33 @@ CKPT_READERS = 4               # restore_shard readers
 CKPT_NS_FILE = 256 << 20       # the namespace's file, CHUNK_BYTES chunks
 CKPT_WINDOW = 8                # stripes in flight (ckpt_bench's default)
 CKPT_PER_CHAIN = 2             # chunk writes in flight per chain
+# phase 25: the GraySort-analog through storage (the reference's multi-process
+# run, BENCH_e2e.json "r3_graysort_1GiB_multiprocess_32part", on the
+# in-process fabric of one host), then kvcache_bench's shape (BASELINE.json
+# config #5) and one DeepSeek-V3 KV block of 16 tokens
+# (num_hidden_layers 61 x (kv_lora_rank 512 + qk_rope_head_dim 64) x 2 B
+# of bf16), then kvcache_fleet_bench's CI smoke with the admission A/B
+# Cut to keep the phase near 120 s of command time (the full counts took
+# 146 s for the sort job's two runs and 129.6 s for the two stores, on an
+# NVIDIA H100 80GB HBM3 at 700 W and its host): the input from 1 GiB to
+# 256 MiB, the 16 KiB blocks from 16 384 to 2048 (kvcache_bench's
+# documented run)
+SORT_JOB_MB = 256              # 2 684 352 gensort records of 100 B
+SORT_JOB_WORKERS = 8
+SORT_JOB_PARTITIONS = 32
+SORT_JOB_CHUNK = 1 << 20
+KV_BLOCKS = 2048               # 16 KiB values: 32 MiB
+KV_VALUE = 16 << 10
+KV_BATCH = 32
+KV_CONCURRENCY = 16
+KV_SECONDS = 5.0
+KV_DSV3_VALUE = 16 * 61 * (512 + 64) * 2     # 1 124 352 B: a 2 MiB block class
+KV_DSV3_BLOCKS = 512
+KV_DSV3_BATCH = 8
+KV_DSV3_CONCURRENCY = 8
+KV_CHECK_KEYS = 64             # distinct seeded values put, read, removed
+FLEET_ARGS = ["--procs", "2", "--sessions", "8", "--turns", "1", "--prompts",
+              "16", "--blocks", "4", "--admission-ab", "--json"]
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -2732,21 +2781,21 @@ def ckpt_expected(tree, k: int, m: int, cs: int, dev: torch.device) -> dict:
 
 
 @contextlib.contextmanager
-def host_crc_calls():
-    """The lengths the host CRC is called on, from code that imports it at
-    call time (ECStorageClient.encode_stripe's trimmed tails)."""
-    from t3fs_torch.ops import codec as host
-
-    orig, seen = host.crc32c, []
+def counted_lengths(module, name: str):
+    """The lengths `module.name` (a host CRC) is called on while the block
+    runs: ECStorageClient.encode_stripe's trimmed tails through
+    t3fs_torch.ops.codec.crc32c, which it imports at call time; the storage
+    nodes' small payloads through codec_backend.cpu_crc32c."""
+    orig, seen = getattr(module, name), []
 
     def counted(data, *args, **kwargs):
         seen.append(len(data))
         return orig(data, *args, **kwargs)
-    host.crc32c = counted
+    setattr(module, name, counted)
     try:
         yield seen
     finally:
-        host.crc32c = orig
+        setattr(module, name, orig)
 
 
 def check_ckpt_shards(cluster, lay, manifest, tree, expected: dict) -> int:
@@ -2818,6 +2867,7 @@ async def phase_ckpt(dev: torch.device, leaf_bytes: int = CKPT_LEAF_BYTES,
     from t3fs_torch.client.ec_client import ECLayout, ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
     from t3fs_torch.fuse.vfs import FileSystem
+    from t3fs_torch.ops import codec as host_codec
     from t3fs_torch.ops import cuda_codec as cc
     from t3fs_torch.storage.codec_backend import (
         DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
@@ -2937,7 +2987,7 @@ async def phase_ckpt(dev: torch.device, leaf_bytes: int = CKPT_LEAF_BYTES,
         c0 = (codec.flushes, codec.batched_items, dict(codec.codec_counts))
         nodes0 = {nid: (ss.node.codec.batches, ss.node.codec.batched_items)
                   for nid, ss in cluster.storage.items()}
-        with host_crc_calls() as host_lens:
+        with counted_lengths(host_codec, "crc32c") as host_lens:
             t0 = time.perf_counter()
             stats = await writer.save(1, tree, resume=False)
             save_wall = time.perf_counter() - t0
@@ -3144,6 +3194,263 @@ def phase_ckpt_bench() -> None:
            f"[24] ckpt_bench metric line: {metric}")
 
 
+# --- phase 25: the GraySort-analog through storage, the KVCache store and tier -
+
+def node_batches(fabric) -> list[tuple[int, int]]:
+    return [(n.codec.batches, n.codec.batched_items) for n in fabric.nodes]
+
+
+def log_nodes(phase: str, per_node: list[tuple[int, int]], host: list[int]) -> None:
+    log(f"[{phase}] per node (B1 batches, items, items per batch): " + ", ".join(
+        f"n{i + 1} {b}, {it}, {it / max(b, 1):.2f}" for i, (b, it) in enumerate(per_node))
+        + f"; payloads on the nodes' host CRC {len(host)} ({sum(host)} B, the "
+        f"largest {max(host, default=0)} B)")
+
+
+async def sort_job_run(backend: str, dev: torch.device, mb: int, workers: int,
+                       parts: int, chunk: int) -> dict:
+    """One run of sort_bench's job (`--sort-backend backend`) on a fresh
+    in-process fabric (3 nodes, 1 replica, a CudaChecksumBackend a node on
+    `dev`): the reference's checks inside `_run_job`; before its last
+    cleanup every OUT file is read back and hashed.  Returns the result,
+    the OUT hashes, the launches, the nodes' B1 batches and host CRCs, and
+    the time inside the device sorter."""
+    import hashlib
+
+    from t3fs_torch.benchmarks import sort_bench as sb
+    from t3fs_torch.benchmarks._env import make_env
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage import codec_backend
+    from t3fs_torch.storage.codec_backend import CudaChecksumBackend
+    from t3fs_torch.storage.native_engine import NativeChunkEngine
+
+    args = sb.parse_args(["--mb", str(mb), "--workers", str(workers),
+                          "--partitions", str(parts), "--chunk-size", str(chunk),
+                          "--sort-backend", backend]
+                         + ([] if dev.type == "cuda" else ["--cpu"]))
+    # the "cuda" backend a node, on `dev` (the CPU runs its plain versions)
+    args.checksum_backend = lambda: CudaChecksumBackend(device=dev)
+    env, sc, chains = await make_env(args)
+    out_hashes: dict[int, str] = {}
+    sorter_s: list[float] = []
+    orig_sorter, orig_cleanup = sb.make_device_sorter, sb._cleanup_job_files
+    cleanups = []
+
+    def timed_sorter(device):
+        sort_perm = orig_sorter(device)
+
+        def timed(rows):
+            t0 = time.perf_counter()
+            perm = sort_perm(rows)
+            sorter_s.append(time.perf_counter() - t0)
+            return perm
+        return timed
+
+    async def hash_then_clean(args, sc, lay):
+        if cleanups:
+            for part in range(args.partitions):
+                inode = sb.OUT_INODE + part
+                n = await sc.query_last_chunk(lay, inode)
+                data = (await sc.read_file_range(lay, inode, 0, n))[0] if n else b""
+                out_hashes[part] = hashlib.sha256(data).hexdigest()
+        cleanups.append(1)
+        await orig_cleanup(args, sc, lay)
+
+    try:
+        expect(all(isinstance(t.engine, NativeChunkEngine) for n in env.nodes
+                   for t in n.targets.values()), "[25] a target is not native")
+        for node in env.nodes:
+            await asyncio.to_thread(node.codec.warmup, [chunk])
+        sb.make_device_sorter, sb._cleanup_job_files = timed_sorter, hash_then_clean
+        with counted_lengths(codec_backend, "cpu_crc32c") as host:
+            cc.reset_launches()
+            result = await sb._run_job(args, sc, chains)
+            launches = dict(cc.launches)
+        return {"result": result, "out": out_hashes, "launches": launches,
+                "nodes": node_batches(env), "host": list(host),
+                "sorter_s": sorter_s}
+    finally:
+        sb.make_device_sorter, sb._cleanup_job_files = orig_sorter, orig_cleanup
+        await sc.close()
+        await env.stop()
+
+
+async def phase_sort_job(dev: torch.device, mb: int = SORT_JOB_MB,
+                         workers: int = SORT_JOB_WORKERS,
+                         parts: int = SORT_JOB_PARTITIONS,
+                         chunk: int = SORT_JOB_CHUNK) -> dict:
+    """25a: sort_bench's GraySort-analog through the port's storage, with the
+    device sorter, then with numpy, each on a fresh fabric.  Both pass the
+    reference's checks and write the same OUT bytes.  Returns the device
+    run's launches."""
+    on_card = dev.type == "cuda"
+    runs = {}
+    for backend in ("device", "numpy"):
+        r = await sort_job_run(backend, dev, mb, workers, parts, chunk)
+        runs[backend] = r
+        res = r["result"]
+        log(f"[25] sort job --sort-backend {backend}: {res['records']} records "
+            f"({res['bytes']} B), {workers} workers, {parts} partitions, "
+            f"{chunk >> 10} KiB chunks, 3 nodes x 1 replica: phase1_s "
+            f"{res['phase1_s']}, phase2_s {res['phase2_s']}, sort_wall_s "
+            f"{res['sort_wall_s']}, sort_MB_s {res['sort_MB_s']} (host clock); "
+            f"verified {res['verified']} (count, key XOR, every partition "
+            f"sorted, boundaries in order); launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }"
+            + (f"; inside the device sorter {sum(r['sorter_s']):.3f} s over "
+               f"{len(r['sorter_s'])} partitions (columns, H2D, sort, D2H; the "
+               f"largest {max(r['sorter_s'], default=0) * 1e3:.1f} ms)"
+               if backend == "device" else ""))
+        log_nodes("25", r["nodes"], r["host"])
+    dev_run, np_run = runs["device"], runs["numpy"]
+    walls = ("phase1_s", "phase2_s", "sort_wall_s", "sort_MB_s", "sort_backend")
+    expect({k: v for k, v in dev_run["result"].items() if k not in walls}
+           == {k: v for k, v in np_run["result"].items() if k not in walls},
+           f"[25] the runs' results differ: {dev_run['result']} / {np_run['result']}")
+    expect(len(dev_run["out"]) == parts and dev_run["out"] == np_run["out"],
+           "[25] the device sort's OUT files differ from numpy's")
+    expect(len(dev_run["sorter_s"]) > 0, "[25] the device sorter never ran")
+    log(f"[25] the device run's {parts} OUT files equal the numpy run's byte for "
+        f"byte (sha256)")
+    if on_card:
+        expect(dev_run["launches"].get("crc_words", 0) > 0,
+               "[25] the sort job launched no B1")
+    return dev_run["launches"]
+
+
+async def phase_kvcache(dev: torch.device, blocks: int, value_size: int,
+                        batch: int, concurrency: int, seconds: float) -> dict:
+    """25b: kvcache_bench's phases (populate, batched random gets, GC removal
+    of every key) through KVCacheStore on the bench's fabric (3 nodes, 3
+    replicas, a CudaChecksumBackend a node unless on the CPU); then
+    KV_CHECK_KEYS distinct seeded values put and read back exactly, a
+    seeded prefix chain's longest_prefix, GC, and a miss for every key.
+    Returns the bench's launches."""
+    from t3fs_torch.benchmarks import kvcache_bench as kb
+    from t3fs_torch.benchmarks._env import make_env
+    from t3fs_torch.lib.kvcache import KVCacheConfig, KVCacheStore
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage import codec_backend
+    from t3fs_torch.storage.codec_backend import (
+        DEFAULT_MIN_DEVICE_BYTES, CudaChecksumBackend)
+
+    on_card = dev.type == "cuda"
+    args = kb.parse_args(["--blocks", str(blocks), "--value-size", str(value_size),
+                          "--batch", str(batch), "--concurrency", str(concurrency),
+                          "--seconds", str(seconds)])
+    args.checksum_backend = lambda: CudaChecksumBackend(device=dev)
+    env, sc, chains = await make_env(args)
+    block_cap = 1 << (args.value_size + 256 - 1).bit_length()
+    kv = KVCacheStore(sc, chains, namespace=f"bench-{args.seed}",
+                      config=KVCacheConfig(block_size=block_cap,
+                                           gc_concurrency=args.concurrency))
+    try:
+        for node in env.nodes:
+            if value_size >= DEFAULT_MIN_DEVICE_BYTES:
+                await asyncio.to_thread(node.codec.warmup, [value_size + 64])
+        with counted_lengths(codec_backend, "cpu_crc32c") as host:
+            cc.reset_launches()
+            res = await kb._run_phases(args, kv)
+            launches = dict(cc.launches)
+        per_node = node_batches(env)
+        device_crcs = value_size >= DEFAULT_MIN_DEVICE_BYTES
+        log(f"[25] kvcache_bench: {blocks} blocks of {value_size} B (block class "
+            f"{block_cap} B), batch {batch}, concurrency {concurrency}, "
+            f"{seconds:g} s of gets, 3 nodes x 3 replicas: populate_put_iops "
+            f"{res['populate_put_iops']}, get_iops {res['get_iops']}, get_MB_s "
+            f"{res['get_MB_s']}, get_p50_ms {res['get_p50_ms']}, get_p99_ms "
+            f"{res['get_p99_ms']}, gc_remove_iops {res['gc_remove_iops']} (host "
+            f"clock); get_miss {res['get_miss']}, gc_removed {res['gc_removed']}; "
+            f"B1 launches {launches.get('crc_words', 0)}; "
+            + ("every block's CRC on B1 on every hop" if device_crcs else
+               "every CRC on the host (values under the nodes' 64 KiB device "
+               "threshold)"))
+        log_nodes("25", per_node, host)
+        expect(res["get_miss"] == 0 and res["gc_removed"] == blocks
+               and res["get_iops"] > 0, f"[25] kvcache_bench: {res}")
+        if device_crcs:
+            expect(all(it >= blocks for _, it in per_node)
+                   and (launches.get("crc_words", 0) > 0 or not on_card),
+                   f"[25] a node did not batch every block on B1: {per_node}")
+        else:
+            expect(all(b == 0 for b, _ in per_node) and not launches.get("crc_words")
+                   and len(host) >= 3 * blocks,
+                   f"[25] a small block's CRC left the host: {per_node}, {len(host)}")
+
+        # exact bytes, a prefix chain and GC misses
+        rng = np.random.default_rng(SEED + 25)
+        keys = [f"check-{i}".encode() for i in range(KV_CHECK_KEYS)]
+        values = [rng.bytes(int(n)) for n in rng.integers(
+            value_size // 2, value_size + 1, KV_CHECK_KEYS)]
+        await asyncio.gather(*(kv.put(k, v) for k, v in zip(keys, values)))
+        got = await kv.get_many(keys)
+        expect(got == values, "[25] a get returned other bytes than were put")
+        blocks_chain = [rng.bytes(64) for _ in range(8)]
+        chain = KVCacheStore.prefix_keys("dsv3-prefix", blocks_chain)
+        for k, v in zip(chain[:5], values[:5]):
+            await kv.put(k, v)
+        n, vals = await kv.longest_prefix("dsv3-prefix", blocks_chain)
+        expect(n == 5 and vals == values[:5], f"[25] longest_prefix {n} != 5")
+        expect(await kv.remove_many(keys + chain[:5]) == KV_CHECK_KEYS + 5,
+               "[25] GC did not remove every key")
+        expect(all(v is None for v in await kv.get_many(keys + chain[:5])),
+               "[25] a key was served after GC")
+        expect((await kv.longest_prefix("dsv3-prefix", blocks_chain))[0] == 0,
+               "[25] the prefix chain was served after GC")
+        log(f"[25] {KV_CHECK_KEYS} seeded values read back exactly, longest_prefix "
+            f"5 of 8 on a seeded chain, every key a miss after GC")
+        return launches
+    finally:
+        await sc.close()
+        await env.stop()
+
+
+def phase_fleet(cpu: bool = False) -> None:
+    """25c: `kvcache_fleet_bench` (the reference's CI smoke plus the
+    admission A/B) in this process: its spawned workers run clients only;
+    the host cell's tokens come from the shm arena and its peak stays
+    within the window."""
+    from t3fs_torch.benchmarks import kvcache_fleet_bench as fb
+
+    rc, lines = run_captured(fb.main, FLEET_ARGS + (["--cpu"] if cpu else []),
+                             phase=25)
+    expect(rc == 0 and lines, f"[25] kvcache_fleet_bench exit {rc}")
+    out = json.loads(lines[-1])
+    on, off, adm = out["fleet"]["on"], out["fleet"]["off"], out["admission"]
+    expect(on["sessions"] == off["sessions"] == 16 and on["puts"] > 0
+           and off["put_p50_ms"] > 0, f"[25] fleet: {out['fleet']}")
+    expect(out["gc"]["within_budget"] and out["gc"]["removed"] > 0,
+           f"[25] fleet GC: {out['gc']}")
+    host = adm["host"]
+    expect(adm["bound_held"] and host["scope_effective"] == "host"
+           and 0 < host["host_peak"] <= adm["window"],
+           f"[25] host-scope admission: {adm}")
+    log(f"[25] fleet: write-behind put p50 {on['put_p50_ms']} ms against "
+        f"{off['put_p50_ms']} ms without ({out['put_p50_speedup']}x); GC removed "
+        f"{out['gc']['removed']} within budget; admission: host scope on the shm "
+        f"arena, peak {host['host_peak']} of window {adm['window']}, process "
+        f"scope's concurrent peak {adm['process']['concurrent_held_peak']}")
+
+
+async def phase_graysort_kvcache(dev: torch.device, sort_mb: int = SORT_JOB_MB,
+                                 kv_blocks: int = KV_BLOCKS,
+                                 dsv3_blocks: int = KV_DSV3_BLOCKS,
+                                 kv_seconds: float = KV_SECONDS) -> dict:
+    """Phase 25's storage parts on `dev`: 25a and 25b; returns their launches."""
+    total: dict = {}
+    t0 = time.perf_counter()
+    add_launches(total, await phase_sort_job(dev, sort_mb))
+    t1 = time.perf_counter()
+    add_launches(total, await phase_kvcache(dev, kv_blocks, KV_VALUE, KV_BATCH,
+                                            KV_CONCURRENCY, kv_seconds))
+    add_launches(total, await phase_kvcache(dev, dsv3_blocks, KV_DSV3_VALUE,
+                                            KV_DSV3_BATCH, KV_DSV3_CONCURRENCY,
+                                            kv_seconds))
+    log(f"[25] walls: the sort job's two runs {t1 - t0:.1f} s, the KVCache store "
+        f"{time.perf_counter() - t1:.1f} s; launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3206,6 +3513,10 @@ def main() -> int:
     main_runs.append(asyncio.run(phase_recovery(dev)))
     main_runs.append(asyncio.run(phase_ckpt(dev)))
     phase_ckpt_bench()
+    t0 = time.perf_counter()
+    main_runs.append(asyncio.run(phase_graysort_kvcache(dev)))
+    phase_fleet()
+    log(f"[25] phase: {time.perf_counter() - t0:.1f} s")
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -27,7 +27,8 @@ bad = sorted(m for m in sys.modules
 print(len(mods), bad)
 assert not bad, bad
 for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
-            "monitor", "core", "meta", "fuse", "ckpt"):
+            "monitor", "core", "meta", "fuse", "ckpt", "lib", "usrbio",
+            "kvcache"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 """
 
@@ -86,7 +87,8 @@ def _entry_points():
     import asyncio
 
     from t3fs_torch import bench, graft_entry, resolve_device
-    from t3fs_torch.benchmarks import ckpt_bench, devbench, sort_bench
+    from t3fs_torch.benchmarks import (
+        ckpt_bench, devbench, kvcache_bench, kvcache_fleet_bench, sort_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -170,14 +172,18 @@ def _entry_points():
         # meta service, and the checkpoint bench without --cpu
         lambda: asyncio.run(_default_cluster(with_meta=True)),
         lambda: ckpt_bench.main(["--runs", "1"]),
+        # the sort job through storage and the KVCache benches, without --cpu
+        lambda: sort_bench.main(["--mb", "1"]),
+        lambda: kvcache_bench.main(["--blocks", "1"]),
+        lambda: kvcache_fleet_bench.main(["--procs", "1"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(57))
+@pytest.mark.parametrize("i", range(60))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 57
+    assert len(entries) == 60
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
