@@ -6,7 +6,9 @@ every kernel.
 
 Phases (any failure exits non-zero; nothing is caught into "ok"):
   0  report the card; build the kernels from t3fs_torch/csrc (into the
-     ignored t3fs_torch/_build/) and print the build time
+     ignored t3fs_torch/_build/) and print the build time; the host library
+     (chunk engine, host CRC, io_uring reader, usrbio rings), /dev/shm's
+     size, and usrbio.cpp through g++ -Wall -Wextra without a warning
   1  B1 (CRC words) against its plain PyTorch version: random segments
      (4096 rows, and ragged 16-row units: 1, 7, 1001 rows), every run
      length 1..16 (chunks of 1..17, 24, 40 segments), 4 MiB chunks x 64, the
@@ -182,6 +184,31 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      --procs 2 --sessions 8 --turns 1 --prompts 16 --blocks 4
      --admission-ab --json` in this process: its workers run clients only,
      the host cell on the shm token arena within its window
+ 26  the usrbio ring data plane (3FS's USRBIO zero-copy client) on
+     usrbio_bench's cluster (LocalCluster of 3 nodes, 2 chains of 2
+     replicas, with meta, a CudaChecksumBackend a node): /dev/shm's size; an
+     app ring opened from a second process (its pops wait on a
+     process-shared semaphore).  (a) usrbio_bench's documented 4 KiB random
+     reads (depth 64, 5 s) in --data-plane-ab and --cross-host-ab, one trial
+     a cell, over a 16 MiB file (cut: see USRBIO_SMALL_FILE): rpc against
+     ring, shm against cross-host batched against per-op; every read
+     verified against the populated bytes, every CRC on the host.  (b) the
+     same on the ring at 256 KiB blocks (the ring slot size) over 256 MiB:
+     the populate rides the ring as inline WRITEs (B1 on every hop), the
+     reads take the service's awaited path, then 64 app OP_WRITEs through
+     the IoRing, read back, and every chunk of both replicas against the
+     native host CRC and plain B1.  (c) the riders on data_plane="ring"
+     (5 nodes: RS(8+2) with a node down): a 256 MiB checkpoint saved (B2 +
+     B1), restored, a node fail-stopped and restored degraded (B3 + B1),
+     512 KVCacheStore blocks of 16 KiB put and read by get_many; then
+     `kvcache_scale_bench --smoke --json` in this process (its gates, the
+     ring plane).  Every ring cell shows that the ring served: the nodes'
+     SQEs equal the SQEs the clients sent (at least every IO of the run),
+     no IO spilled to rpc, no address memoized as pre-ring, the client's
+     plane up, `aliased` true same-host and false cross-host (where the
+     Buf.batch doorbells moved); prints IOPS, p50, p99, GB/s, B1 batches
+     and items a node, host-CRC payloads, the checkpoint walls, the scale
+     bench's replay figures and the phase's wall
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -192,7 +219,8 @@ launches would drown the codec paths' counts, each mesh rank's one run of
 its steps in phase 19, summed over the ranks, phase 20's step, each
 pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups, each sort job and kvcache_bench run of phase 25 after
-its fabric's start and warmup) and read just after; launches
+its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
+its riders after their cluster's start and warmups) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -301,6 +329,26 @@ KV_DSV3_CONCURRENCY = 8
 KV_CHECK_KEYS = 64             # distinct seeded values put, read, removed
 FLEET_ARGS = ["--procs", "2", "--sessions", "8", "--turns", "1", "--prompts",
               "16", "--blocks", "4", "--admission-ab", "--json"]
+# phase 26: the usrbio ring data plane on usrbio_bench's documented cluster
+# (LocalCluster of 3 nodes, 2 chains of 2 replicas, with meta).  (a) its
+# documented 4 KiB random reads (depth 64, 5 s a cell, one trial) over a
+# 16 MiB file: cut from a KVCache node's working set so that each cell's
+# 4 KiB populate (4096 chunk writes) stays near 7-15 s (the host of an
+# NVIDIA H100 80GB HBM3 machine took 275-570 chunk writes/s, and a 64 MiB
+# file 79 s on the rpc plane); (b) the same at the
+# ring slot size, 256 KiB blocks over a 256 MiB file, then 64 app OP_WRITEs;
+# (c) a 256 MiB checkpoint (4 leaves of CKPT_LEAF_BYTES at RS(8+2), 256 KiB
+# shards) and 512 KVCache blocks of 16 KiB on data_plane="ring"
+USRBIO_ARGS = ["--nodes", "3", "--replicas", "2", "--chains", "2", "--depth", "64",
+               "--seconds", "5", "--trials", "1", "--verify", "--seed", str(SEED + 26)]
+USRBIO_SMALL_BLOCK = 4096
+USRBIO_SMALL_FILE = 16 << 20
+USRBIO_BIG_BLOCK = 256 << 10   # StorageClientConfig.ring_slot_size
+USRBIO_BIG_FILE = 256 << 20
+USRBIO_APP_WRITES = 64         # the app iov's depth: one wave
+RING_CKPT_LEAVES = 4           # of CKPT_LEAF_BYTES: a 256 MiB tree
+RING_KV_BLOCKS = 512
+RING_KV_VALUE = 16 << 10
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
@@ -3451,6 +3499,522 @@ async def phase_graysort_kvcache(dev: torch.device, sort_mb: int = SORT_JOB_MB,
     return total
 
 
+# --- phase 26: the usrbio ring data plane ----------------------------------------
+
+def shm_line() -> str:
+    """/dev/shm's size and free space: an over-large shm segment passes
+    ftruncate on tmpfs and dies with SIGBUS on first touch."""
+    import os
+
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError as e:
+        return f"/dev/shm: {e}"
+    return (f"/dev/shm: {st.f_blocks * st.f_frsize / 2**20:.0f} MiB, "
+            f"{st.f_bavail * st.f_frsize / 2**20:.0f} MiB free")
+
+
+def shm_mapped() -> list[str]:
+    """The usrbio shm segments (iovs and rings) this process still maps."""
+    from pathlib import Path
+
+    maps = Path("/proc/self/maps")
+    if not maps.exists():
+        return []
+    return sorted({line.split(None, 5)[5] for line in maps.read_text().splitlines()
+                   if "/t3fs-iov-" in line or "/t3fs-ior-" in line})
+
+
+RING_CHILD = """
+import sys
+from t3fs_torch.lib import usrbio
+ring = usrbio.IoRing(sys.argv[1], create=False)
+iov = usrbio.IoVec(ring.iov_name, create=False)
+left = int(sys.argv[2])
+while left:
+    sqes = ring.pop_sqes(max_n=64, timeout_ms=20000)
+    if not sqes:
+        sys.exit(3)
+    for s in sqes:
+        iov.write_at(s.iov_off, bytes([s.userdata & 0xFF]) * s.len)
+    ring.complete_many([(s.userdata, s.len, 0) for s in sqes])
+    left -= len(sqes)
+iov.close(unlink=False)
+ring.close()
+"""
+
+
+def ring_cross_process(waves: int = 2, per_wave: int = 32, block: int = 4096) -> None:
+    """26: an app ring opened from a second process: this process preps and
+    submits reads, the child pops them (a process-shared semaphore's wait),
+    fills the iov slots and completes them; every CQE and byte checked."""
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from t3fs_torch.lib import usrbio
+
+    name = f"cs26-{os.getpid()}"
+    iov = usrbio.IoVec(f"iov-{name}", waves * per_wave * block)
+    ring = usrbio.IoRing(f"ring-{name}", entries=2 * per_wave, iov=iov)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-c", RING_CHILD, f"ring-{name}",
+                              str(waves * per_wave)], cwd=root, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        got = []
+        for w in range(waves):
+            for i in range(per_wave):
+                u = w * per_wave + i
+                ring.prep_io(True, 7, u * block, block, u * block, userdata=u + 1)
+            ring.submit_ios()
+            while len(got) < (w + 1) * per_wave:
+                done = ring.wait_for_ios(max_n=per_wave, min_n=1, timeout_ms=60000)
+                expect(bool(done), "[26] the second process completed nothing in 60 s")
+                got += done
+        out, _ = child.communicate(timeout=60)
+        expect(child.returncode == 0, f"[26] the ring's second process: exit "
+               f"{child.returncode}: {out}")
+        expect(sorted(c.userdata for c in got) == list(range(1, waves * per_wave + 1))
+               and all(c.result == block and c.status == 0 for c in got),
+               "[26] cross-process CQEs")
+        for c in got:
+            u = c.userdata - 1
+            expect(iov.read_at(u * block, block) == bytes([c.userdata & 0xFF]) * block,
+                   f"[26] cross-process iov slot {u}")
+        log(f"[26] an app ring opened from a second process: {len(got)} reads in "
+            f"{waves} waves popped there (process-shared semaphores), every CQE and "
+            f"iov byte checked; {time.perf_counter() - t0:.2f} s with the child's start")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        ring.close()
+        iov.close()
+
+
+def usrbio_args(dev: torch.device, block: int, file_size: int, extra=()):
+    """usrbio_bench's arguments for one of phase 26's runs, its nodes'
+    backend the CUDA one on `dev` (the CPU runs its plain versions)."""
+    from t3fs_torch.benchmarks import usrbio_bench as ub
+    from t3fs_torch.storage.codec_backend import CudaChecksumBackend
+
+    args = ub.parse_args([*USRBIO_ARGS, "--block-size", str(block), "--file-size",
+                          str(file_size), *extra, *(["--cpu"] if dev.type == "cpu" else [])])
+    args.checksum_backend = lambda: CudaChecksumBackend(device=dev)
+    return args
+
+
+def check_usrbio_cell(name: str, r: dict, aliased: bool | None, app_ios: int = 0) -> None:
+    """One usrbio_bench run: no error, every read verified; on the rpc plane
+    no SQE; on the ring plane no IO spilled to rpc, every SQE the clients
+    sent taken by a node and none other, at least every IO of the run (the
+    populate's chunk writes and every read, plus `app_ios` of each op; a
+    retry sends one again), no address memoized as pre-ring, the client's
+    plane up, every session's aliased bit as `aliased`."""
+    ring = r["ring"]
+    expect(r["errors"] == 0 and r.get("wrong_reads") == 0 and r["reads"] > 0,
+           f"[26] {name}: {r['reads']} reads, {r['errors']} errors, "
+           f"{r.get('wrong_reads')} wrong")
+    if aliased is None:
+        expect(ring["sqe_reads"] == ring["sqe_writes"] == ring["sent_reads"]
+               == ring["sent_writes"] == 0 and not ring["aliased"],
+               f"[26] {name}: the rpc plane took ring SQEs: {ring}")
+        return
+    expect(ring["spills"] == 0 and ring["sqe_reads"] == ring["sent_reads"]
+           and ring["sqe_writes"] == ring["sent_writes"]
+           and ring["sent_reads"] >= r["reads"] + app_ios
+           and ring["sent_writes"] >= ring["populate_writes"] + app_ios,
+           f"[26] {name}: ring SQEs {ring} for {r['reads']} reads, "
+           f"{ring['populate_writes']} populate writes and {app_ios} app IOs each")
+    expect(not ring["failed"] and ring["pre_ring"] == 0 and ring["aliased"]
+           and all(a is aliased for a in ring["aliased"]),
+           f"[26] {name}: {ring} (aliased should be {aliased})")
+
+
+def log_usrbio_cell(name: str, r: dict) -> None:
+    extra = (f", {r['doorbells']} doorbells, {r['ops_per_doorbell']} ops a doorbell, "
+             f"{r['fallback_ops']} per-op" if r.get("cross_host") else "")
+    log(f"[26] {name}: {r['iops']} IOPS, {r['MB_s']} MB/s, p50 {r['p50_ms']} ms, p99 "
+        f"{r['p99_ms']} ms ({r['reads']} reads of {r['block_size']} B at depth "
+        f"{r['depth']}, all verified); populate {r['populate_s']} s; the nodes' ring "
+        f"SQEs {r['ring']['sqe_reads']} reads, {r['ring']['sqe_writes']} writes (as "
+        f"the clients sent; {r['ring']['spills']} spills); aliased "
+        f"{sorted(set(r['ring']['aliased']))}{extra}")
+
+
+def phase_usrbio_small(dev: torch.device, file_size: int = USRBIO_SMALL_FILE) -> dict:
+    """26a: usrbio_bench's documented 4 KiB random reads (depth 64, 5 s) in
+    --data-plane-ab and --cross-host-ab, one trial a cell, over a
+    `file_size` file: rpc against ring, shm against batched against per-op.
+    Returns the cells' launches (none expected: 4 KiB CRCs are the host's)."""
+    from t3fs_torch.benchmarks import usrbio_bench as ub
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage import codec_backend
+
+    cc.reset_launches()
+    with counted_lengths(codec_backend, "cpu_crc32c") as host:
+        ab = ub.run_ab(usrbio_args(dev, USRBIO_SMALL_BLOCK, file_size))
+        xh = ub.run_crosshost_ab(usrbio_args(dev, USRBIO_SMALL_BLOCK, file_size))
+        launches = dict(cc.launches)
+    cells = (("rpc", ab["rpc"], None), ("ring", ab["ring"], True),
+             ("shm", xh["shm"], True), ("crosshost_batched", xh["crosshost_batched"], False),
+             ("crosshost_perop", xh["crosshost_perop"], False))
+    for name, r, aliased in cells:
+        check_usrbio_cell(name, r, aliased)
+        log_usrbio_cell(name, r)
+    batched, perop = xh["crosshost_batched"], xh["crosshost_perop"]
+    expect(batched["doorbells"] > 0 and batched["batched_ops"] > batched["doorbells"]
+           and batched["fallback_ops"] == 0,
+           f"[26] crosshost_batched: the batched transport did not carry it: {batched}")
+    expect(perop["fallback_ops"] > 0 and perop["doorbells"] == 0,
+           f"[26] crosshost_perop: not on per-op Buf RPCs: {perop}")
+    log(f"[26] 4 KiB over {file_size >> 20} MiB: ring / rpc IOPS {ab['ring_vs_rpc_iops']}x, "
+        f"crosshost batched / shm {xh['crosshost_batched_vs_shm_iops']}x, batched / "
+        f"per-op {xh['batched_vs_perop_iops']}x; payloads on the nodes' host CRC "
+        f"{len(host)} (the largest {max(host, default=0)} B), launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    expect(not launches.get("crc_words"), f"[26] a 4 KiB CRC left the host: {launches}")
+    return launches
+
+
+def check_usrbio_replicas(cluster, inode: int, chunk: int, expected: list[bytes],
+                          host_crcs: list[int], b1: list[int], replicas: int) -> int:
+    """Every chunk of the file on every replica (read from each engine):
+    `replicas` copies an index, committed, the expected bytes, ChunkMeta's
+    checksum equal to the native host CRC and plain B1.  Runs in a thread."""
+    seen: dict[int, int] = {}
+    for ss in cluster.storage.values():
+        for t in ss.node.targets.values():
+            for meta in t.engine.all_metas():
+                if meta.chunk_id.inode != inode:
+                    continue
+                i = meta.chunk_id.index
+                seen[i] = seen.get(i, 0) + 1
+                expect(meta.length == chunk and meta.update_ver == meta.commit_ver
+                       and meta.checksum == host_crcs[i] == b1[i],
+                       f"[26] chunk {i} on node {ss.node.node_id}: {meta}, native "
+                       f"{host_crcs[i]:#x}, plain B1 {b1[i]:#x}")
+                expect(t.engine.read(meta.chunk_id) == expected[i],
+                       f"[26] chunk {i} on node {ss.node.node_id}: stored bytes differ")
+    expect(seen == {i: replicas for i in range(len(expected))},
+           f"[26] replicas per chunk: {sorted(set(seen.values()))}, "
+           f"{len(seen)} of {len(expected)} chunks")
+    return sum(seen.values())
+
+
+def phase_usrbio_big(dev: torch.device, block: int = USRBIO_BIG_BLOCK,
+                     file_size: int = USRBIO_BIG_FILE,
+                     app_writes: int = USRBIO_APP_WRITES) -> dict:
+    """26b: usrbio_bench on the ring plane at the ring slot size: its
+    populate rides the ring as plain inline WRITEs (B1 on every hop), its
+    random reads take the service's awaited path (_ring_one); then
+    `app_writes` whole-block OP_WRITEs through the app's IoRing, read back
+    through it, and every chunk of both replicas checked.  Returns the
+    run's launches."""
+    from t3fs_torch.benchmarks import usrbio_bench as ub
+    from t3fs_torch.ops import codec as host_codec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage import codec_backend
+    from t3fs_torch.storage.codec_backend import DEFAULT_MIN_DEVICE_BYTES
+
+    args = usrbio_args(dev, block, file_size, ["--data-plane", "ring"])
+    n_chunks = file_size // block
+    # the expected bytes and CRCs before any cluster starts
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 260)
+    targets = sorted(int(i) for i in rng.choice(n_chunks, app_writes, replace=False))
+    news = [rng.bytes(block) for _ in targets]
+    blob = np.random.default_rng(args.seed).bytes(file_size)
+    expected = [blob[i * block:(i + 1) * block] for i in range(n_chunks)]
+    for i, data in zip(targets, news):
+        expected[i] = data
+    del blob
+    host_crcs = [host_codec.crc32c(c) for c in expected]
+    b1 = plain_crcs(expected, dev)
+    log(f"[26] {n_chunks} chunks of {block >> 10} KiB and {app_writes} app writes: "
+        f"data, native and plain B1 CRCs made in {time.perf_counter() - t0:.2f} s")
+    facts: dict = {}
+
+    async def after(cluster, fs, fh, iov, ring, ident, _blob):
+        loop = asyncio.get_running_loop()
+
+        async def wait_all(n: int) -> list:
+            got = []
+            while len(got) < n:
+                done = await loop.run_in_executor(None, lambda: ring.wait_for_ios(
+                    max_n=n, min_n=1, timeout_ms=60000))
+                expect(bool(done), "[26] app ring: no completion in 60 s")
+                got += done
+            return got
+
+        t = time.perf_counter()
+        for j, (i, data) in enumerate(zip(targets, news)):
+            iov.write_at(j * block, data)
+            ring.prep_io(False, ident, j * block, block, i * block, userdata=j)
+        ring.submit_ios()
+        done = await wait_all(len(targets))
+        expect(all(c.status == 0 and c.result == block for c in done),
+               f"[26] app OP_WRITEs: {[c for c in done if c.status][:4]}")
+        facts["write_s"] = time.perf_counter() - t
+        for j in range(len(targets)):
+            iov.write_at(j * block, bytes(block))
+            ring.prep_io(True, ident, j * block, block, targets[j] * block,
+                         userdata=1000 + j)
+        ring.submit_ios()
+        done = await wait_all(len(targets))
+        expect(all(c.status == 0 and c.result == block for c in done),
+               "[26] app OP_READs after the writes")
+        expect(all(iov.read_at(j * block, block) == news[j] for j in range(len(targets))),
+               "[26] an app write read back other bytes")
+        facts["replicas"] = await asyncio.to_thread(
+            check_usrbio_replicas, cluster, ident, block, expected, host_crcs, b1,
+            args.replicas)
+        facts["nodes"] = [(nid, ss.node.codec.batches, ss.node.codec.batched_items)
+                          for nid, ss in sorted(cluster.storage.items())]
+
+    async def run() -> dict:
+        return await ub.run_bench(args, after=after)
+
+    cc.reset_launches()
+    with counted_lengths(codec_backend, "cpu_crc32c") as host:
+        r = asyncio.run(run())
+        launches = dict(cc.launches)
+    check_usrbio_cell(f"{block >> 10} KiB ring", r, True, app_ios=app_writes)
+    log_usrbio_cell(f"{block >> 10} KiB ring", r)
+    log(f"[26] {block >> 10} KiB: populate {file_size >> 20} MiB in {r['populate_s']} s "
+        f"({file_size / r['populate_s'] / 1e9:.3f} GB/s), reads {r['MB_s'] / 1e3:.3f} "
+        f"GB/s; {app_writes} app OP_WRITEs in {facts['write_s']:.3f} s, read back; "
+        f"{facts['replicas']} stored chunks checked byte for byte, committed, "
+        f"ChunkMeta checksums equal to the native host CRC and plain B1; "
+        f"per node (B1 batches, items, items a batch): " + ", ".join(
+            f"n{nid} {b}, {it}, {it / max(b, 1):.2f}" for nid, b, it in facts["nodes"])
+        + f"; host-CRC payloads {len(host)}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    expect(not host or max(host) < DEFAULT_MIN_DEVICE_BYTES,
+           f"[26] a {max(host, default=0)} B payload took the host CRC")
+    if dev.type == "cuda":
+        expect(launches.get("crc_words", 0) > 0, "[26] the 256 KiB ring writes launched no B1")
+    return launches
+
+
+async def phase_ring_riders(dev: torch.device, leaf_bytes: int = CKPT_LEAF_BYTES,
+                            leaves: int = RING_CKPT_LEAVES, chunk_bytes: int = CKPT_CHUNK,
+                            kv_blocks: int = RING_KV_BLOCKS,
+                            kv_value: int = RING_KV_VALUE) -> dict:
+    """26c: the ring's riders on one LocalCluster with meta (5 nodes, chains
+    1-2 of 2 replicas, EC chains 3-12 of one: usrbio_bench's two chains of
+    two, widened to RS(8+2) with a node down), its StorageClient on
+    data_plane="ring" with an arena slot for every data shard of the tree:
+    a seeded checkpoint saved (B2 + B1) and restored,
+    KVCacheStore puts and get_many, one node fail-stopped and a degraded
+    restore (B3 + B1).  Every IO the client sent rides the ring (counted at
+    the client and as the nodes' SQEs), nothing spills to rpc.  Returns the
+    launches."""
+    from t3fs_torch.ckpt import CheckpointReader, CheckpointWriter, flatten_tree
+    from t3fs_torch.client.ec_client import ECLayout, ECStorageClient
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.fuse.vfs import FileSystem
+    from t3fs_torch.lib.kvcache import KVCacheConfig, KVCacheStore
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.codec_backend import CudaChecksumBackend
+    from t3fs_torch.testing.cluster import LocalCluster
+
+    cs, on_card = chunk_bytes, dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 26)
+    t0 = time.perf_counter()
+    tree = ckpt_tree(rng, leaf_bytes, leaves, ())
+    logical = sum(leaf_bytes_of(x).nbytes for _, x in flatten_tree(tree)[0])
+    kv_keys = [f"ring-kv-{i}".encode() for i in range(kv_blocks)]
+    kv_vals = [rng.bytes(kv_value) for _ in range(kv_blocks)]
+    log(f"[26] riders: a {logical >> 20} MiB tree ({leaves} leaves) and {kv_blocks} "
+        f"values of {kv_value >> 10} KiB made in {time.perf_counter() - t0:.2f} s")
+    cluster = LocalCluster(num_nodes=5, replicas=2, num_chains=2, ec_chains=10,
+                           with_meta=True,
+                           checksum_backend=lambda: CudaChecksumBackend(device=dev))
+    await cluster.start()
+    cluster.sc.cfg.data_plane = "ring"
+    # an arena slot a data shard of the tree: the healthy restore reads
+    # them all in one batch, and a smaller arena sends what does not fit to
+    # rpc (arena pressure: the default 64 slots spilled 961 reads of a
+    # 256 MiB tree); at least a slot a write channel and a window of stripe
+    # reads
+    cluster.sc.cfg.ring_slot_size = cs
+    cluster.sc.cfg.ring_slots = max(-(-logical // cs), cluster.sc.cfg.num_channels,
+                                    CKPT_WINDOW * K)
+    codec = TorchECCodec(device=dev)
+    ec = ECStorageClient(cluster.sc, codec=codec)
+    fs = FileSystem(cluster.mc, cluster.sc)
+    # every node, the one killed later included: its counters outlive it
+    nodes = [ss.node for ss in cluster.storage.values()]
+
+    def node_sqes() -> tuple[int, int]:
+        return (sum(n.ring_reads for n in nodes), sum(n.ring_writes for n in nodes))
+    try:
+        lay = ECLayout.create(k=K, m=M, chunk_size=cs, chains=list(range(3, 13)))
+        victim = 3
+        lost = tuple(s for s in range(K + M) if cluster.chain(
+            lay.shard_chain(0, s)).targets[0].node_id == victim)
+        for ss in cluster.storage.values():
+            await asyncio.to_thread(ss.node.codec.warmup, [cs])
+        codec.warmup_decode([(tuple(s for s in range(K + M) if s not in lost)[:K], lost)],
+                            cs, K, M)
+        ring = cluster.sc._ring_plane()
+        expect(ring is not None, "[26] the cluster's client has no ring plane")
+        sent0 = dict(ring.sqes)
+        steps: dict[str, dict] = {}
+        walls: dict[str, float] = {}
+        writer = CheckpointWriter(ec, fs, lay, "/ckpt/ring", window=CKPT_WINDOW,
+                                  per_chain=CKPT_PER_CHAIN)
+        reader = CheckpointReader(ec, fs, "/ckpt/ring", window=CKPT_WINDOW)
+
+        async def step(name: str, coro):
+            cc.reset_launches()
+            t = time.perf_counter()
+            out = await coro
+            walls[name] = time.perf_counter() - t
+            steps[name] = dict(cc.launches)
+            return out
+        before = node_sqes()
+        stats = await step("save", writer.save(1, tree, resume=False))
+        expect(stats.stripes_skipped == 0 and stats.shards_retried == 0,
+               f"[26] ring save: {stats}")
+        got = await step("restore", reader.restore())
+        expect(await asyncio.to_thread(same_leaves, tree, dict(flatten_tree(got)[0])),
+               "[26] ring restore: a leaf differs")
+        del got
+
+        kv = KVCacheStore(cluster.sc, [1, 2], namespace="ring-rider",
+                          config=KVCacheConfig(block_size=1 << (kv_value + 256 - 1).bit_length()))
+        kv_before = (ring.sqes["write"], ring.sqes["read"])
+        await step("kv_put", asyncio.gather(*(kv.put(k, v) for k, v in zip(kv_keys, kv_vals))))
+        kv_got = []
+
+        async def gets():
+            for s in range(0, kv_blocks, 32):
+                kv_got.extend(await kv.get_many(kv_keys[s:s + 32]))
+        await step("kv_get_many", gets())
+        expect(kv_got == kv_vals, "[26] get_many on the ring returned other bytes")
+        kv_ios = (ring.sqes["write"] - kv_before[0], ring.sqes["read"] - kv_before[1])
+        expect(kv_ios[0] >= kv_blocks and kv_ios[1] >= kv_blocks and not ring.spills,
+               f"[26] kvcache: {kv_ios} ring writes and reads for {kv_blocks} blocks, "
+               f"{ring.spills} spills")
+
+        await cluster.kill_storage_node(victim)
+        await wait_state(lambda: all(
+            cluster.chain(lay.shard_chain(0, s)).head() is None for s in lost),
+            30.0, "EC chains of the killed node out of service", phase=26)
+        await cluster.mgmtd_client.refresh()
+        dec0 = codec.codec_counts.get("cuda-decode-words", 0)
+        got = await step("degraded", reader.restore())
+        expect(await asyncio.to_thread(same_leaves, tree, dict(flatten_tree(got)[0])),
+               "[26] degraded ring restore: a leaf differs")
+        del got
+        decodes = codec.codec_counts.get("cuda-decode-words", 0) - dec0
+        after = node_sqes()
+        sqes = (after[0] - before[0], after[1] - before[1])
+        sessions = [a for _, _, a in ring._sessions.values()]
+        sent = (ring.sqes["read"] - sent0["read"], ring.sqes["write"] - sent0["write"])
+        expect(ring.spills == 0, f"[26] riders spilled {ring.spills} IOs to rpc")
+        expect(sqes == sent, f"[26] the nodes took {sqes} ring SQEs (reads, writes) "
+               f"for the client's {sent}")
+        expect(sessions and all(sessions) and not ring._no_ring
+               and not cluster.sc._ring_state["failed"],
+               f"[26] riders' sessions {sessions}, pre-ring {ring._no_ring}")
+        total: dict = {}
+        for part in steps.values():
+            add_launches(total, part)
+        per_node = [(nid, ss.node.codec.batches, ss.node.codec.batched_items)
+                    for nid, ss in sorted(cluster.storage.items())]
+        log(f"[26] riders on data_plane=ring: save {walls['save']:.3f} s "
+            f"({logical / walls['save'] / 1e6:.1f} MB/s of logical bytes), restore "
+            f"{walls['restore']:.3f} s ({logical / walls['restore'] / 1e6:.1f} MB/s), "
+            f"degraded with node {victim} down (slots {lost}) {walls['degraded']:.3f} s "
+            f"({logical / walls['degraded'] / 1e6:.1f} MB/s, {decodes} fused decodes); "
+            f"KVCacheStore {kv_blocks} puts {walls['kv_put']:.3f} s, get_many "
+            f"{walls['kv_get_many']:.3f} s ({kv_blocks / walls['kv_get_many']:.0f} gets/s), "
+            f"every byte back")
+        log(f"[26] riders' IOs: the client sent ring SQEs (reads, writes) {sent}, the "
+            f"nodes took {sqes}, spills 0 (arena {cluster.sc.cfg.ring_slots} x "
+            f"{cs >> 10} KiB); "
+            f"{len(sessions)} sessions, all aliased; codec {codec.flushes} flushes, "
+            f"{codec.batched_items / max(codec.flushes, 1):.2f} items a flush, routes "
+            f"{codec.codec_counts}; per node (B1 batches, items, items a batch): "
+            + ", ".join(f"n{nid} {b}, {it}, {it / max(b, 1):.2f}" for nid, b, it in per_node))
+        log(f"[26] riders' launches: " + "; ".join(
+            f"{k} {({n: c for n, c in v.items() if c})}" for k, v in steps.items()))
+        if on_card:
+            expect_routes(codec, ("cuda-encode-words", "cuda-decode-words"))
+            expect(steps["save"].get("rs_raid6_words", 0) > 0
+                   and steps["save"].get("crc_words", 0) > 0
+                   and steps["degraded"].get("rs_reconstruct_words", 0) > 0,
+                   f"[26] riders' launches: {steps}")
+        return total
+    finally:
+        await ec.close()
+        await cluster.stop()
+
+
+def phase_scale_bench(cpu: bool = False) -> None:
+    """26c: `kvcache_scale_bench --smoke --json` in this process: its hard
+    gates hold and it ran on the ring plane."""
+    from t3fs_torch.benchmarks import kvcache_scale_bench as ksb
+
+    rc, lines = run_captured(ksb.main, ["--smoke", "--json"] + (["--cpu"] if cpu else []),
+                             phase=26)
+    expect(rc == 0 and lines, f"[26] kvcache_scale_bench exit {rc}")
+    out = json.loads(lines[-1])
+    gates = out["gates"]
+    expect(out["data_plane"] == "ring" and out["wrong_bytes"] == 0
+           and all(gates[g] for g in ("zero_wrong_bytes", "zero_lost_keys",
+                                      "no_resurrected_dels", "bounded_replay")),
+           f"[26] kvcache_scale_bench: data_plane {out['data_plane']}, gates {gates}")
+    ab, last = out["compaction_ab"], out["curve"][-1]
+    log(f"[26] kvcache_scale_bench --smoke on the {out['data_plane']} plane: "
+        f"{out['sessions']} sessions over {out['tenants']} tenants, get p50 "
+        f"{last['get_p50_ms']} ms, p99 {last['get_p99_ms']} ms; replay "
+        f"{last['replay_s']} s over {last['replay_records']} records; compaction "
+        f"replay {ab['before']['replay_s']} s -> {ab['after']['replay_s']} s "
+        f"({ab['replay_speedup']}x, records {ab['record_ratio']}x fewer); gates {gates}")
+
+
+def phase_usrbio(dev: torch.device) -> dict:
+    """Phase 26 on `dev`: the cross-process ring, 26a, 26b and 26c; returns
+    the launches of its main-path runs."""
+    t0 = time.perf_counter()
+    log(f"[26] {shm_line()}")
+    ring_cross_process()
+    total: dict = {}
+    add_launches(total, phase_usrbio_small(dev))
+    add_launches(total, phase_usrbio_big(dev))
+    add_launches(total, asyncio.run(phase_ring_riders(dev)))
+    phase_scale_bench(cpu=dev.type == "cpu")
+    left = shm_mapped()
+    expect(not left, f"[26] usrbio shm segments still mapped: {left}")
+    log(f"[26] {shm_line()}; no usrbio segment left mapped")
+    log(f"[26] phase: {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
+def host_warnings() -> None:
+    """usrbio.cpp through the host compiler with -Wall -Wextra (syntax
+    only): its includes stand on their own and it warns of nothing."""
+    import subprocess
+
+    from t3fs_torch.ops import _build
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    r = subprocess.run([cxx, "-std=c++20", "-fsyntax-only", "-Wall", "-Wextra",
+                        str(_build.SRC_DIR / "usrbio.cpp")], capture_output=True, text=True)
+    expect(r.returncode == 0 and not r.stderr.strip(),
+           f"usrbio.cpp under {version} -Wall -Wextra: {r.stderr}")
+    log(f"[0] usrbio.cpp under {version} with -Wall -Wextra: no warning")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3472,9 +4036,12 @@ def main() -> int:
     t0 = time.perf_counter()
     expect(host_impl() == "native", "the native host library (csrc/chunk_engine.cpp, "
            "csrc/aio_reader.cpp) did not build or its CRC failed the self-check")
-    log(f"[0] native host library: chunk engine, host CRC and io_uring reader "
-        f"(chunk_engine.cpp, aio_reader.cpp, g++): {time.perf_counter() - t0:.1f} s; "
-        f"io_uring available: {AioReadWorker.available()}")
+    log(f"[0] native host library: chunk engine, host CRC, io_uring reader and "
+        f"usrbio rings (chunk_engine.cpp, aio_reader.cpp, usrbio.cpp, g++): "
+        f"{time.perf_counter() - t0:.1f} s; io_uring available: "
+        f"{AioReadWorker.available()}")
+    log(f"[0] {shm_line()}")
+    host_warnings()
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"[0] nvcc {name}: {line.strip()}")
@@ -3517,6 +4084,7 @@ def main() -> int:
     main_runs.append(asyncio.run(phase_graysort_kvcache(dev)))
     phase_fleet()
     log(f"[25] phase: {time.perf_counter() - t0:.1f} s")
+    main_runs.append(phase_usrbio(dev))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

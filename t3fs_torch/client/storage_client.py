@@ -9,8 +9,10 @@ backoff :492-566,1151-1266, UpdateChannelAllocator), TargetSelection.h:31-49
 writes to head).
 
 The port of t3fs/client/storage_client.py.  Its host CRC of each chunk
-payload runs the port's native host CRC (t3fs_torch/ops/codec.py); the
-usrbio ring data plane is not ported yet, so data_plane="ring" raises.
+payload runs the port's native host CRC (t3fs_torch/ops/codec.py); with
+data_plane="ring" its reads and plain writes ride the usrbio ring plane
+(t3fs_torch/usrbio/ring_client.py), falling back to rpc per address or IO
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from t3fs_torch.storage.types import (
     TruncateChunkReq, UpdateIO, UpdateType, WriteReq, pack_readios,
     unpack_ioresults, update_rpc,
 )
+from t3fs_torch.usrbio.ring_client import RingClient, RingUnsupported
 from t3fs_torch.utils import tracing
 from t3fs_torch.utils.fault_injection import DebugFlags
 from t3fs_torch.utils.status import Status, StatusCode, StatusError, make_error
@@ -85,9 +88,16 @@ class StorageClientConfig:
     # fault-injection flags carried in every request (reference
     # StorageClient.h:162-166 driving DebugFlags, Common.h:290-307)
     debug: DebugFlags = field(default_factory=DebugFlags)
-    # data plane: "rpc" = the struct/packed RPC paths above.  The
-    # reference's "ring" plane (t3fs/usrbio) is not ported: it raises
+    # data plane: "rpc" = the struct/packed RPC paths above; "ring" =
+    # the registered-arena batched SQE/CQE plane (t3fs_torch/usrbio,
+    # docs/usrbio.md) with transparent fallback to rpc per address/IO
     data_plane: str = "rpc"
+    ring_slot_size: int = 256 << 10    # staging arena slot (per IO cap)
+    ring_slots: int = 64               # arena depth (qd the ring absorbs)
+    # suppress the shm-alias offer on ring attach so every IO takes the
+    # one-sided (cross-host) transport even against a same-host server —
+    # the bench/CI knob behind the cross-host cells
+    ring_no_shm: bool = False
 
 
 class _HedgeBudget:
@@ -140,10 +150,6 @@ class StorageClient:
                  client_id: str | None = None,
                  refresh_routing: Callable[[], "asyncio.Future | None"] | None = None):
         self.cfg = config or StorageClientConfig()
-        if self.cfg.data_plane != "rpc":
-            raise ValueError(
-                f"data_plane={self.cfg.data_plane!r}: the port has the rpc "
-                "data plane only (the usrbio ring plane is on the ROADMAP)")
         self._routing = routing_provider
         self._refresh_routing = refresh_routing
         self.client = client or Client()
@@ -175,6 +181,12 @@ class StorageClient:
             self.client.buf_registry = existing
         self.buf_registry = existing
         self.buf_pool = BufferPool(self.buf_registry)
+        # ring data plane (cfg.data_plane == "ring"): ONE RingClient +
+        # arena per client, built lazily on first use.  A mutable holder
+        # (not a plain attribute) so copy.copy views — the EC client's
+        # _fast clone, kvcache's per-call tweaks — share the arena and
+        # its per-node attach sessions instead of registering their own
+        self._ring_state: dict = {"ring": None, "failed": False}
 
     def routing(self) -> RoutingInfo:
         return self._routing()
@@ -315,11 +327,49 @@ class StorageClient:
         finally:
             await self.channels.release(channel)
 
+    def _ring_plane(self) -> "RingClient | None":
+        """The shared RingClient when the ring data plane is on and
+        healthy, else None (every caller then rides the rpc path)."""
+        if self.cfg.data_plane != "ring":
+            return None
+        st = self._ring_state
+        if st["failed"]:
+            return None
+        if st["ring"] is None:
+            try:
+                st["ring"] = RingClient(self)
+            except Exception as e:
+                log.warning("ring data plane unavailable, using rpc: %s", e)
+                st["failed"] = True
+                return None
+        return st["ring"]
+
+    def _ring_write_ok(self, io: UpdateIO, data: bytes) -> bool:
+        """Plain inline WRITEs ride the ring; everything carrying state
+        the SQE doesn't encode (one-sided caller buffers, fragment
+        streams, remove fences, non-WRITE updates, fault-injection
+        flags) keeps the struct/packed rpc path."""
+        d = self.cfg.debug
+        return (io.buf is None and io.inline and not io.stream_id
+                and not io.remove_fence_ver
+                and io.update_type == UpdateType.WRITE
+                and io.length == len(data)
+                and len(data) <= self.cfg.ring_slot_size
+                and not (d.inject_server_error_prob
+                         or d.inject_client_error_prob
+                         or d.num_points_before_fail))
+
     async def _call_write(self, address: str, io: UpdateIO,
                           data: bytes) -> IOResult:
         """One write RPC, packed wire when the server supports it (the
         write path's serde cost is the multi-process bottleneck — same
         motivation as the batch-read packed path)."""
+        ring = self._ring_plane()
+        if ring is not None and self._ring_write_ok(io, data):
+            try:
+                return await ring.write_io(address, io, data)
+            except RingUnsupported:
+                pass    # pre-ring server / no slot: rpc path below
         return await update_rpc(
             self.client, address, io, data, self.cfg.request_timeout_s,
             self._no_packed_write, "Storage.write_packed", "Storage.write",
@@ -434,6 +484,7 @@ class StorageClient:
             payloads[i] = p
             winner[i] = src
 
+        ring = self._ring_plane()
         pending = list(range(len(ios)))
         for attempt in range(self.cfg.max_retries):
             routing = self.routing()
@@ -458,6 +509,18 @@ class StorageClient:
 
             async def read_group(address: str, idxs: list[int],
                                  src: str = "primary"):
+                if ring is not None:
+                    # ring data plane first: payloads land in the arena,
+                    # results install through the same first-OK-wins
+                    # funnel (hedged duplicates and all).  Leftovers —
+                    # ineligible IOs, arena pressure, a pre-ring server
+                    # (None = the whole group) — continue below on rpc.
+                    left = await ring.read_group(address, idxs, ios,
+                                                 _install, src)
+                    if left is not None:
+                        if not left:
+                            return
+                        idxs = left
                 group = [ios[i] for i in idxs]
                 # packed fast path: one fixed-stride blob instead of ~70
                 # nested structs per batch through the tag codec (the
@@ -782,4 +845,11 @@ class StorageClient:
                             * (0.5 + random.random()))
 
     async def close(self) -> None:
+        ring = self._ring_state.get("ring")
+        if ring is not None:
+            self._ring_state["ring"] = None
+            try:
+                await ring.close()
+            except Exception:
+                pass    # best-effort detach; connections close below
         await self.client.close()

@@ -6,9 +6,10 @@ in .gitignore), under a name keyed by a hash of the source, the shared
 headers and the flags, so an edited source or header rebuilds and an
 unchanged one loads.  All missing libraries compile in parallel, one nvcc
 each.  The one host library is built the same way by the host compiler
-(host_library): the native chunk engine with the host CRC32C and the
-io_uring read engine (csrc/chunk_engine.cpp and csrc/aio_reader.cpp, with
-the flags of the reference's t3fs/native/build.py).  Nothing here runs at
+(host_library): the native chunk engine with the host CRC32C, the
+io_uring read engine and the usrbio shm rings (csrc/chunk_engine.cpp,
+csrc/aio_reader.cpp and csrc/usrbio.cpp, with the flags of the reference's
+t3fs/native/build.py).  Nothing here runs at
 import.
 """
 
@@ -30,11 +31,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 HOST_LIB = "native_storage"
-HOST_SOURCES = ("chunk_engine.cpp", "aio_reader.cpp")
+HOST_SOURCES = ("chunk_engine.cpp", "aio_reader.cpp", "usrbio.cpp")
 HOST_CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
                   *(("-msse4.2",) if platform.machine() in ("x86_64", "AMD64")
                     else ()))
-# linked with -lrt as t3fs/native/build.py links it (librt before glibc 2.34)
+# linked with -lrt as t3fs/native/build.py links it: shm_open and shm_unlink
+# (usrbio.cpp) live in librt before glibc 2.34
 HOST_LDFLAGS = ("-lrt",)
 
 _P = ctypes.c_void_p

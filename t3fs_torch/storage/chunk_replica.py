@@ -15,6 +15,8 @@ Version semantics:
 
 from __future__ import annotations
 
+import os
+
 from t3fs_torch.ops.codec import crc32c, crc32c_combine
 from t3fs_torch.ops.crc32c import crc32c_ref  # noqa: F401 (oracle re-export)
 from t3fs_torch.storage.chunk_engine import ChunkEngine
@@ -286,6 +288,67 @@ class ChunkReplica:
             if self._meta_unchanged(meta, meta2):
                 # commit_ver/state may have advanced; report newest
                 return self._read_finish(io, meta2, data)
+        raise make_error(StatusCode.CHUNK_BUSY,
+                         f"{io.chunk_id}: update storm during read")
+
+    def read_into(self, io: ReadIO, dest=None, *,
+                  addr: int = 0, cap: int = 0) -> IOResult | None:
+        """Zero-copy read: pread straight from the chunk file into `dest`
+        (a writable buffer the caller already registered — a ring
+        session's shm arena slot) — no engine staging buffer, no memcpy
+        out.  Same lock-free validation as read_aio: locate -> pread ->
+        re-locate, requiring the SAME allocation generation and unchanged
+        meta (the put/remove/recreate ABA).  Returns None when the engine
+        can't locate (caller falls back to read() + copy); checksum
+        verification runs over the landed bytes in place."""
+        ri = getattr(self.engine, "read_into", None)
+        if ri is not None:
+            # engine-native path: pread runs UNDER the engine lock, so
+            # the returned meta pairs atomically with the bytes — the
+            # whole read is one library call, no re-check protocol
+            got, meta = ri(io.chunk_id, io.offset, io.length, dest,
+                           io.verify_checksum, addr=addr, cap=cap)
+            if meta.state == ChunkState.DIRTY and not io.allow_uncommitted:
+                raise make_error(StatusCode.CHUNK_BUSY,
+                                 f"{io.chunk_id}: uncommitted"
+                                 f" v{meta.update_ver}")
+            return IOResult(WireStatus(), got, meta.update_ver,
+                            meta.commit_ver, meta.chain_ver, meta.checksum)
+        locate = getattr(self.engine, "locate", None)
+        if locate is None:
+            return None
+        if dest is None:
+            import ctypes
+            dest = memoryview((ctypes.c_ubyte * cap).from_address(addr))
+        for attempt in range(8):
+            meta = self._read_meta_checked(io, None, attempt)
+            want = io.length if io.length else meta.length - io.offset
+            want = max(0, min(want, meta.length - io.offset, len(dest)))
+            if want == 0:
+                return IOResult(WireStatus(), 0, meta.update_ver,
+                                meta.commit_ver, meta.chain_ver,
+                                meta.checksum)
+            loc = locate(io.chunk_id, io.offset, want)
+            if loc is None:
+                return None
+            fd, abs_off, n, gen = loc
+            got = os.preadv(fd, [dest[:n]], abs_off) if n else 0
+            meta2 = self.engine.get_meta(io.chunk_id)
+            loc2 = locate(io.chunk_id, io.offset, want)
+            if not (self._meta_unchanged(meta, meta2) and loc2 is not None
+                    and loc2[3] == gen and got == n):
+                continue
+            if io.verify_checksum and io.offset == 0 \
+                    and got == meta2.length:
+                actual = self.crc(dest[:got])
+                if actual != meta2.checksum:
+                    raise make_error(
+                        StatusCode.CHECKSUM_MISMATCH,
+                        f"{io.chunk_id}: stored {meta2.checksum:#x}"
+                        f" != read {actual:#x}")
+            return IOResult(WireStatus(), got, meta2.update_ver,
+                            meta2.commit_ver, meta2.chain_ver,
+                            meta2.checksum)
         raise make_error(StatusCode.CHUNK_BUSY,
                          f"{io.chunk_id}: update storm during read")
 

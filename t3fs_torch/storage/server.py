@@ -5,10 +5,11 @@ TwoPhaseApplication<StorageServer> bootstrap (storage.cpp): the node hosts
 the Storage RPC service, heartbeats to mgmtd with local target states, and
 runs the resync worker.
 
-The port of t3fs/storage/server.py.  One deliberate difference: the
+The port of t3fs/storage/server.py.  Deliberate differences: the
 checksum backend defaults to "cuda" (B1 on the card for every payload at
-or above its device cutoff), as StorageNode's does; the reference's
-default is "cpu".
+or above its device cutoff), as StorageNode's does, where the reference's
+default is "cpu"; and stop() unmaps the ring sessions' arenas
+(StorageNode.close_ring_sessions), which the reference leaves mapped.
 """
 
 from __future__ import annotations
@@ -276,6 +277,7 @@ class StorageServer:
             # error propagates (chained so the leak's trigger is recorded)
             # and the caller treats the node as wedged
             raise (first or e) from e
+        self.node.close_ring_sessions()
         # only after the RPC server stops: in-flight batch_reads may hold
         # node.aio, and closing the ring under them is a use-after-free
         if self.node.aio is not None:

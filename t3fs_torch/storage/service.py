@@ -13,24 +13,26 @@ replies to the client only after the whole chain committed
 
 The port of t3fs/storage/service.py.  Every hop's payload CRC goes through
 the node's checksum backend, by default the CUDA one (B1,
-t3fs_torch/csrc/crc_words.cu, for payloads at or above its cutoff).  Not
-ported yet: the usrbio ring plane (Storage.ring_*) and the
-StorageEventTrace log.
+t3fs_torch/csrc/crc_words.cu, for payloads at or above its cutoff), on
+the rpc plane and on the usrbio ring plane (Storage.ring_*) alike.  Not
+ported yet: the StorageEventTrace log (analytics/trace_log.py).
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
 import os
 import time as _time
+from dataclasses import dataclass
 from typing import Callable
 
 from t3fs_torch.mgmtd.types import (
     ChainInfo, LocalTargetState, PublicTargetState, RoutingInfo,
 )
 from t3fs_torch.net.conn import Connection
-from t3fs_torch.net.rdma import batched_read, batched_write
+from t3fs_torch.net.rdma import batched_read, batched_write, submit_batched_write
 from t3fs_torch.net.server import rpc_method, service
 from t3fs_torch.net.wire import UpdateFrag, WireStatus, unpack_update_frag
 from t3fs_torch.storage.chunk_engine import ChunkEngine
@@ -42,11 +44,13 @@ from t3fs_torch.storage.types import (
     BatchReadReq, BatchReadRsp, ChunkId, IOResult, PACKED_READIO_VER,
     PackedIOReq, PackedIORsp,
     QueryChunkReq, QueryChunkRsp, QueryLastChunkReq, QueryLastChunkRsp,
-    ReadIO, RemoveChunksReq, SpaceInfoRsp, SyncDoneReq,
+    RING_F_NO_PAYLOAD, RING_F_UNCOMMITTED, RING_F_VERIFY, RING_OP_READ,
+    ReadIO, RemoveChunksReq, RingAttachReq, RingAttachRsp, RingDetachReq,
+    RingDetachRsp, RingRWReq, RingRWRsp, SpaceInfoRsp, SyncDoneReq,
     SyncDoneRsp, SyncStartReq, SyncStartRsp, TargetOpReq, TargetOpRsp,
     TruncateChunkReq, UpdateFragReq, UpdateFragRsp, UpdateIO, UpdateType,
     WriteReq, WriteRsp,
-    pack_ioresults, unpack_readios, unpack_updateio,
+    pack_ioresults, unpack_readios, unpack_ring_sqes, unpack_updateio,
 )
 from t3fs_torch.utils.fault_injection import fault_raise
 from t3fs_torch.utils.metrics import CountRecorder, LatencyRecorder
@@ -116,6 +120,17 @@ class StorageTarget:
         self.engine.close()
 
 
+@dataclass
+class _RingSession:
+    """One attached ring client (t3fs_torch/usrbio RingClient): its registered
+    arena handle for one-sided delivery, plus — same host — the arena's
+    shm segment aliased by name so payloads move by plain memcpy."""
+    ring_id: int
+    client_id: str
+    buf: object          # RemoteBuf handle into the client's registry
+    shm: object | None = None   # IoVec alias of the arena, if same-host
+
+
 class StorageNode:
     """Hosts targets + the Storage RPC service on one node."""
 
@@ -166,11 +181,30 @@ class StorageNode:
         # lease tracker by StorageServer; True = this node's mgmtd lease
         # lapsed, refuse writes (reference: suicide.cc at lease/2)
         self.fence: Callable[[], bool] | None = None
+        # ring data plane sessions (Storage.ring_attach); sessions die
+        # with the node — clients re-attach on NOT_FOUND
+        self.ring_sessions: dict[int, _RingSession] = {}
+        self._ring_ids = itertools.count(1)
+        # SQEs this node's ring_rw took, by op: the count that shows an IO
+        # rode the ring and not an rpc fallback
+        self.ring_reads = 0
+        self.ring_writes = 0
         # when set, create_target with an empty root provisions
         # the chunk dir at <default_root>/t<target_id> — the node owns its
         # disk layout, so a remote orchestrator (the rebalancer) doesn't
         # need to know per-node paths
         self.default_root = ""
+
+    def close_ring_sessions(self) -> None:
+        """Drop every ring session, unmapping each aliased arena: run once
+        the RPC server has stopped.  The client owns the segment and unlinks
+        it, but tmpfs frees its pages only when the last mapping goes, so a
+        session that was never detached (a node stopped under an attached
+        client) must not keep them.  The reference leaves these mapped."""
+        for sess in self.ring_sessions.values():
+            if sess.shm is not None:
+                sess.shm.close(unlink=False)
+        self.ring_sessions.clear()
 
     def fenced(self) -> bool:
         return self.fence is not None and self.fence()
@@ -631,8 +665,8 @@ class StorageService:
     # ---- read path ----
 
     async def _read_one(self, io: ReadIO) -> tuple[IOResult, bytes]:
-        """One chunk read to completion: chain check, then inline /
-        io_uring / thread-pool engine read.
+        """One chunk read to completion (shared by batch_read and ring_rw):
+        chain check, then inline / io_uring / thread-pool engine read.
         Raises StatusError; payload delivery is the caller's business."""
         node = self.node
         node.read_count.add()
@@ -714,6 +748,229 @@ class StorageService:
                                      packed_ver=PACKED_READIO_VER),
                         b"".join(inline_parts))
         return BatchReadRsp(results=results), b"".join(inline_parts)
+
+    # ---- ring data plane (t3fs_torch/usrbio RingClient) ----
+
+    @rpc_method
+    async def ring_attach(self, req: RingAttachReq, payload, conn):
+        """Register a client arena for ring IO.  If the client names an
+        shm segment and we can open it (same host), payloads move by
+        memcpy through the alias; otherwise every IO falls back to
+        one-sided Buf ops on the registered handle — same seam, two
+        transports, invisible to the client beyond the `aliased` bit."""
+        node = self.node
+        sess = _RingSession(ring_id=next(node._ring_ids),
+                            client_id=req.client_id, buf=req.buf)
+        if req.shm_name:
+            try:
+                from t3fs_torch.lib.usrbio import IoVec
+                shm = IoVec(req.shm_name, create=False)
+                if shm.size >= req.shm_size:
+                    sess.shm = shm
+                else:       # stale segment from a recycled name
+                    shm.close(unlink=False)
+            except Exception:
+                pass        # different host / no native lib: one-sided
+        node.ring_sessions[sess.ring_id] = sess
+        return RingAttachRsp(ring_id=sess.ring_id,
+                             aliased=sess.shm is not None), b""
+
+    @rpc_method
+    async def ring_detach(self, req: RingDetachReq, payload, conn):
+        sess = self.node.ring_sessions.pop(req.ring_id, None)
+        if sess is not None and sess.shm is not None:
+            sess.shm.close(unlink=False)    # the client owns the segment
+        return RingDetachRsp(), b""
+
+    @rpc_method
+    async def ring_rw(self, req: RingRWReq, payload, conn):
+        """One submission batch: a packed SQE array in, a packed CQE
+        array out.  No per-IO request objects, no response payload frame
+        — read bytes land in the client's arena (shm alias or one-sided
+        write) before the CQE reports them, write bytes are pulled from
+        it.  Per-IO failures are CQE statuses; an unknown ring_id is an
+        RPC-level NOT_FOUND so the client re-attaches after our restart."""
+        node = self.node
+        sess = node.ring_sessions.get(req.ring_id)
+        if sess is None:
+            raise make_error(StatusCode.NOT_FOUND,
+                             f"ring {req.ring_id} not attached")
+        if node.read_delay_s:
+            await asyncio.sleep(node.read_delay_s)   # injected straggler
+        if node._read_sem is None:
+            node._read_sem = asyncio.Semaphore(node.read_concurrency)
+        # aliased small reads complete SYNCHRONOUSLY right here — no
+        # per-IO coroutine, no scheduler round trip; only IOs that must
+        # await (writes, large/one-sided reads) pay for a task.  The
+        # same shape WITHOUT an alias stages synchronously too: engine
+        # reads run inline, then the whole wave's payloads post as
+        # one-sided work elements (zero per-op tasks) and settle in one
+        # batch flush — the cross-host mirror of the fast path
+        results: list[IOResult | None] = []
+        slow: list = []
+        pushes: list = []    # (cqe pos, iov_off, payload view)
+        for rec in unpack_ring_sqes(payload or req.sqes):
+            if rec[11] == RING_OP_READ:     # the SQE's op
+                node.ring_reads += 1
+            else:
+                node.ring_writes += 1
+            r = self._ring_read_fast(sess, rec)
+            if r is None and sess.shm is None:
+                staged = self._ring_read_stage(rec)
+                if staged is not None:
+                    r, iov_off, view = staged
+                    if view is not None:
+                        pushes.append((len(results), iov_off, view))
+                    results.append(r)
+                    continue
+            if r is None:
+                slow.append((len(results),
+                             self._ring_one(sess, rec, req.client_id,
+                                            conn)))
+                results.append(None)
+            else:
+                results.append(r)
+        if pushes:
+            futs, idxs = [], []
+            for pos, iov_off, view in pushes:
+                try:
+                    futs.append(submit_batched_write(
+                        conn, sess.buf.slice(iov_off, len(view)), view))
+                    idxs.append(pos)
+                except StatusError as e:   # slot outside the arena
+                    results[pos] = IOResult(WireStatus(int(e.code),
+                                                       str(e)))
+            acks = await asyncio.gather(*futs, return_exceptions=True)
+            for pos, ack in zip(idxs, acks):
+                if isinstance(ack, StatusError):
+                    # delivery failed (stale rkey, dead registration):
+                    # the CQE must not claim bytes the client never got
+                    results[pos] = IOResult(WireStatus(int(ack.code),
+                                                       str(ack)))
+                elif isinstance(ack, BaseException):
+                    raise ack
+        if slow:
+            done = await asyncio.gather(*(c for _, c in slow))
+            for (pos, _), r in zip(slow, done):
+                results[pos] = r
+        packed = pack_ioresults(results)
+        if packed is not None:
+            # CQEs ride the payload channel: serde sees an empty struct
+            return RingRWRsp(), packed
+        return RingRWRsp(results=results), b""   # error text must survive
+
+    def _ring_read_fast(self, sess: _RingSession,
+                        rec: tuple) -> IOResult | None:
+        """Synchronous completion for the hot shape — an aliased READ at
+        or under the inline threshold (the KVCache/FUSE 4-64 KiB random
+        read): chain check, engine read, memcpy into the client's arena.
+        Returns None when the IO needs the awaitable general path."""
+        (inode, index, chain_id, offset, length, iov_off, aux, _cksum,
+         _chan, _chanseq, chain_ver, op, flags) = rec
+        if (op != RING_OP_READ or sess.shm is None or not length
+                or length > SMALL_READ_INLINE_BYTES
+                or flags & RING_F_NO_PAYLOAD):
+            return None
+        node = self.node
+        node.read_count.add()
+        try:
+            _chain, target = node._check_chain(chain_id, chain_ver)
+            io = ReadIO(ChunkId(inode, index), chain_id, offset, length,
+                        None, bool(flags & RING_F_VERIFY),
+                        bool(flags & RING_F_UNCOMMITTED), False,
+                        chain_ver)
+            if length <= aux and iov_off + length <= sess.shm.size:
+                # true zero-copy: the disk pread lands IN the client's
+                # arena slot — no engine staging buffer, no memcpy out.
+                # Raw pointer, not a wrapped slice, so the bounds check
+                # above is load-bearing: it is the only thing keeping
+                # the pread inside the mapped arena
+                r = target.replica.read_into(
+                    io, addr=sess.shm.addr + iov_off, cap=length)
+                if r is not None:
+                    return r
+            result, data = target.replica.read(io, None)
+            if data:
+                sess.shm.write_at(
+                    iov_off, data[:aux] if len(data) > aux else data)
+            return result
+        except StatusError as e:
+            return IOResult(WireStatus(int(e.code), str(e)))
+
+    def _ring_read_stage(self, rec: tuple):
+        """Synchronous engine read for the NON-aliased hot shape (the
+        cross-host 4-64 KiB random read): same gate as _ring_read_fast
+        minus the alias.  Returns (result, iov_off, view | None) with
+        the payload truncated to the slot cap, or None when the IO
+        needs the general awaitable path; delivery is the caller's
+        batched one-sided flush."""
+        (inode, index, chain_id, offset, length, iov_off, aux, _cksum,
+         _chan, _chanseq, chain_ver, op, flags) = rec
+        if (op != RING_OP_READ or not length
+                or length > SMALL_READ_INLINE_BYTES
+                or flags & RING_F_NO_PAYLOAD):
+            return None
+        node = self.node
+        node.read_count.add()
+        try:
+            _chain, target = node._check_chain(chain_id, chain_ver)
+            io = ReadIO(ChunkId(inode, index), chain_id, offset, length,
+                        None, bool(flags & RING_F_VERIFY),
+                        bool(flags & RING_F_UNCOMMITTED), False,
+                        chain_ver)
+            result, data = target.replica.read(io, None)
+            n = min(len(data), aux) if data else 0
+            # view, not bytes(): the staged wave ships straight from the
+            # engine's buffer through the batch frame
+            return result, iov_off, (memoryview(data)[:n] if n else None)
+        except StatusError as e:
+            return IOResult(WireStatus(int(e.code), str(e))), iov_off, None
+
+    async def _ring_one(self, sess: _RingSession, rec: tuple,
+                        client_id: str, conn: Connection) -> IOResult:
+        (inode, index, chain_id, offset, length, iov_off, aux, cksum,
+         chan, chanseq, chain_ver, op, flags) = rec
+        try:
+            if op == RING_OP_READ:
+                io = ReadIO(ChunkId(inode, index), chain_id, offset,
+                            length, None, bool(flags & RING_F_VERIFY),
+                            bool(flags & RING_F_UNCOMMITTED),
+                            bool(flags & RING_F_NO_PAYLOAD), chain_ver)
+                result, data = await self._read_one(io)
+                if not io.no_payload and data:
+                    # aux = the arena slot's capacity: a chunk that grew
+                    # past it is truncated here and the CQE's true length
+                    # tells the client to re-read via the rpc path
+                    n = min(len(data), aux)
+                    if sess.shm is not None:
+                        sess.shm.write_at(iov_off, data[:n])
+                    else:
+                        # view, not bytes(): the staging queue ships it in
+                        # the batch frame without an intermediate copy
+                        await batched_write(conn,
+                                            sess.buf.slice(iov_off, n),
+                                            memoryview(data)[:n])
+                return result
+            # RING_OP_WRITE: payload staged in the client arena
+            if length:
+                if sess.shm is not None:
+                    payload = sess.shm.read_at(iov_off, length)
+                else:
+                    payload = await batched_read(
+                        conn, sess.buf.slice(iov_off, length))
+            else:
+                payload = b""
+            io = UpdateIO(chunk_id=ChunkId(inode, index),
+                          chain_id=chain_id, chain_ver=chain_ver,
+                          update_type=UpdateType.WRITE, offset=offset,
+                          length=length, chunk_size=aux, checksum=cksum,
+                          channel=chan, channel_seq=chanseq,
+                          client_id=client_id, inline=True)
+            with self.node.write_latency.time():
+                return await self._update_to_result(io, payload, conn,
+                                                    require_head=True)
+        except StatusError as e:
+            return IOResult(WireStatus(int(e.code), str(e)))
 
     # ---- metadata-ish ops ----
 

@@ -468,6 +468,104 @@ class UpdateFragRsp:
     received: int = 0
 
 
+# ---- ring data plane (t3fs_torch/usrbio/ring_client.py; docs/usrbio.md) ----
+# One Storage.ring_rw frame carries a WHOLE submission batch as a single
+# fixed-stride SQE array (CSqe analog, lib/usrbio.py) — one envelope, one
+# serde pass, N IOs — and answers with a packed CQE array (_IORESULT_FMT
+# stride) carrying per-IO status + the device CRC32C from the chunk
+# engine/codec.  Bulk payload bytes never ride these frames: they move
+# through the attach-time registered arena (shm aliasing on the same
+# host, one-sided Buf.read/Buf.write across hosts).  Negotiation is by
+# METHOD name, exactly like the packed write twins above: an old server
+# answers RPC_METHOD_NOT_FOUND and the client falls back to the rpc
+# data plane for that address.
+
+RING_OP_READ = 0
+RING_OP_WRITE = 1
+# read-SQE flag bits (mirror ReadIO's booleans)
+RING_F_VERIFY = 1
+RING_F_UNCOMMITTED = 2
+RING_F_NO_PAYLOAD = 4
+
+# inode idx | chain off len iov_off aux cksum chan chanseq chain_ver | op flags
+# `aux` is per-op: read = destination capacity at iov_off (the server
+# truncates delivery to it; the client re-reads rare oversizes via rpc),
+# write = chunk_size.  cksum/chan/chanseq are write-only (0 on reads).
+_RING_SQE_FMT = struct.Struct("<2Q9q2B")
+
+
+def pack_ring_sqes(recs) -> bytes | None:
+    """Fixed-stride encoding of ring SQE tuples (13 fields, see
+    _RING_SQE_FMT); None when any field is out of range — that IO takes
+    the struct rpc path instead."""
+    out = bytearray()
+    pack = _RING_SQE_FMT.pack
+    try:
+        for r in recs:
+            out += pack(*r)
+    except struct.error:
+        return None
+    return bytes(out)
+
+
+def unpack_ring_sqes(blob: bytes):
+    return _RING_SQE_FMT.iter_unpack(blob)
+
+
+@serde_struct
+@dataclass
+class RingAttachReq:
+    """Register a client arena with this storage node.  shm_name names
+    the arena's iov segment for same-host aliasing (the server tries to
+    open it by name); buf is the one-sided fallback handle over the same
+    memory, served by the client's BufferRegistry."""
+    client_id: str = ""
+    shm_name: str = ""
+    shm_size: int = 0
+    buf: RemoteBuf | None = None
+    proto_ver: int = 1
+
+
+@serde_struct
+@dataclass
+class RingAttachRsp:
+    ring_id: int = 0
+    aliased: bool = False      # server mapped the shm segment directly
+    proto_ver: int = 1
+
+
+@serde_struct
+@dataclass
+class RingDetachReq:
+    ring_id: int = 0
+
+
+@serde_struct
+@dataclass
+class RingDetachRsp:
+    ok: bool = True
+
+
+@serde_struct
+@dataclass
+class RingRWReq:
+    """One submission batch: ring_id names the attached arena, sqes is
+    the packed SQE array (_RING_SQE_FMT stride)."""
+    ring_id: int = 0
+    sqes: bytes = b""
+    client_id: str = ""
+
+
+@serde_struct
+@dataclass
+class RingRWRsp:
+    """cqes = packed IOResults (_IORESULT_FMT stride) in request order;
+    the struct list fallback carries results whose error message must
+    survive (pack_ioresults declines those)."""
+    cqes: bytes = b""
+    results: list[IOResult] = field(default_factory=list)
+
+
 async def update_rpc(client, address: str, io: UpdateIO, payload: bytes,
                      timeout: float, no_packed: set[str],
                      packed_method: str, struct_method: str,

@@ -8,7 +8,9 @@ The port of t3fs/testing/fabric.py: each node's payload CRCs run on the
 CUDA checksum backend unless the caller asks for another one (the tests
 pass "cpu" or a CudaChecksumBackend on device="cpu"); as in the reference,
 targets default to the native chunk engine and large reads to the io_uring
-worker where the kernel allows it (else the thread-pool path).
+worker where the kernel allows it (else the thread-pool path).  stop()
+unmaps the nodes' ring sessions' arenas, which the reference leaves
+mapped.
 """
 
 from __future__ import annotations
@@ -154,6 +156,7 @@ class StorageFabric:
         for server in self.servers:
             await server.stop()
         for node in self.nodes:
+            node.close_ring_sessions()
             # after the RPC servers: in-flight reads may hold node.aio
             if node.aio is not None:
                 await node.aio.close()

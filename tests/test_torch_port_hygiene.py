@@ -30,6 +30,9 @@ for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
             "monitor", "core", "meta", "fuse", "ckpt", "lib", "usrbio",
             "kvcache"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
+for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worker",
+            "benchmarks.usrbio_bench", "benchmarks.kvcache_scale_bench"):
+    assert f"t3fs_torch.{mod}" in mods, mod
 """
 
 
@@ -88,7 +91,8 @@ def _entry_points():
 
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import (
-        ckpt_bench, devbench, kvcache_bench, kvcache_fleet_bench, sort_bench)
+        ckpt_bench, devbench, kvcache_bench, kvcache_fleet_bench,
+        kvcache_scale_bench, sort_bench, usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -176,14 +180,17 @@ def _entry_points():
         lambda: sort_bench.main(["--mb", "1"]),
         lambda: kvcache_bench.main(["--blocks", "1"]),
         lambda: kvcache_fleet_bench.main(["--procs", "1"]),
+        # the usrbio ring benches, without --cpu
+        lambda: usrbio_bench.main(["--file-size", "65536", "--seconds", "0.1"]),
+        lambda: kvcache_scale_bench.main(["--smoke"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(60))
+@pytest.mark.parametrize("i", range(62))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 60
+    assert len(entries) == 62
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -262,14 +269,25 @@ def test_sort_bench_cli_fails_without_gpu():
 
 
 def test_port_refuses_what_it_has_not_ported():
-    """The ring data plane is not ported: asking for it raises, never runs
-    another plane."""
+    """What the port has not ported raises, never runs something else: the
+    monitor and the sharded KV of LocalCluster, and the meta events'
+    Parquet sink (analytics/).  The ring data plane is ported: asking for
+    it builds a client on that plane."""
     from t3fs_torch.client.storage_client import (
         StorageClient, StorageClientConfig)
+    from t3fs_torch.meta.events import MetaEventLog
+    from t3fs_torch.testing.cluster import LocalCluster
 
-    with pytest.raises(ValueError, match="ring"):
-        StorageClient(lambda: None,
-                      config=StorageClientConfig(data_plane="ring"))
+    for kw in ({"with_monitor": True}, {"kv_shards": 2},
+               {"with_kv_distributor": True}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            LocalCluster(checksum_backend="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        MetaEventLog(trace_path="events.parquet")
+    sc = StorageClient(lambda: None,
+                       config=StorageClientConfig(data_plane="ring"))
+    assert sc.cfg.data_plane == "ring" and sc._ring_state == {
+        "ring": None, "failed": False}
 
 
 NATIVE_FROM_PORT = """
@@ -286,6 +304,12 @@ assert lib.parent == Path("t3fs_torch/_build").resolve(), lib
 assert lib.name.startswith("libnative_storage-"), lib
 AioReadWorker.available()
 fab = StorageFabric(num_nodes=1, replicas=1, aio_read=True)
+from t3fs_torch.lib.usrbio import IoRing, IoVec, _lib
+iov = IoVec(f"hyg-{sys.argv[2]}", 4096)
+ring = IoRing(f"hyg-ring-{sys.argv[2]}", entries=4, iov=iov)
+ring.close()
+iov.close()
+assert Path(_lib()._name).resolve() == lib
 assert (StorageFabric.default_engine_backend, StorageFabric.default_aio_read,
         fab.aio_read) == ("native", True, True)
 maps = Path("/proc/self/maps").read_text() if Path("/proc/self/maps").exists() else ""
@@ -295,12 +319,13 @@ assert not [m for m in sys.modules if m == "t3fs" or m.startswith("t3fs.")]
 
 
 def test_port_native_engine_and_aio_come_from_the_port(tmp_path):
-    """The native chunk engine and the io_uring reader are the port's own:
-    built from t3fs_torch/csrc into t3fs_torch/_build, loaded without the
-    reference's library, and the fabric's defaults as in the reference."""
+    """The native chunk engine, the io_uring reader and the usrbio shm rings
+    are the port's own: built from t3fs_torch/csrc into t3fs_torch/_build,
+    loaded without the reference's library, and the fabric's defaults as in
+    the reference."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", NATIVE_FROM_PORT,
-                        str(tmp_path / "root")], cwd=ROOT, env=env,
+                        str(tmp_path / "root"), str(os.getpid())], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["NativeChunkEngine"]
