@@ -70,7 +70,7 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      its bound, its plain version and torch.add, and H1 against torch.add in
      interleaved CUDA-graph replays; then the headline bench
      (`t3fs_torch.bench --quick`: value > 0, the card named, H1 launched)
-     and the decode bench (--decode-ab at 12 x 1 MiB stripes)
+     and the decode bench's microbench (--decode-ab at 12 x 1 MiB stripes)
  18  the device sort: 2^24 gensort rows (seed 2026) through sort_bench.measure
      (sort_columns and make_device_sorter both equal to lexsort_rows; the
      sort's CUDA-event time beside its bound, H2D, D2H, the host's column
@@ -209,6 +209,27 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      Buf.batch doorbells moved); prints IOPS, p50, p99, GB/s, B1 batches
      and items a node, host-CRC payloads, the checkpoint walls, the scale
      bench's replay figures and the phase's wall
+ 27  BASELINE.json's harness at the reference's widths (t3fs_torch/benchmarks/
+     {storage_bench,codec_economics,ec_recovery_bench,repair_drill_bench}.py,
+     every node a CudaChecksumBackend on the card): (a) config #1,
+     storage_bench --mode write --nodes 1 --replicas 1 --chunk-size 4 MiB
+     (5 s), once on the card (B1 on every write) and once --cpu (the host
+     CRC), every stored chunk's checksum against the host CRC of its bytes,
+     and the ratio; (b) config #2, the Makefile's write-bench (--write-ab,
+     4 MiB, 3 replicas, 16 ops): each pipeline's MB/s, p50, p99 and its
+     three replicas checked equal and against the host CRC; (c)
+     codec_economics at 64 KiB and 1 MiB chunks: the batches B1 reached
+     under storage_bench's load, B1's rate on the device alone (CUDA-graph
+     replays) and the host cost of one launch at each batch, the card's pinned host-to-device rate, the model table
+     over the reference's interconnects and the measured one; (d) configs
+     #3 / #4, ec_recovery_bench at its defaults (5 nodes, RS(8+2), 256 KiB
+     chunks, 16 stripes: write, degraded read after a node kill, repair,
+     every stripe read back), its decode metric line with the measured
+     degraded-read MB/s; (e) repair_drill_bench at the Makefile's
+     repair-drill size (12 stripes, 64 KiB chunks, --repair-mode both) on
+     lrc-xor (repair_traffic_ratio < 0.5) and pm-msr (< 0.7), every read
+     and cell verified.  Each part prints its B1-B6 launches and B1's items
+     a batch on each node
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -220,7 +241,8 @@ its steps in phase 19, summed over the ranks, phase 20's step, each
 pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups, each sort job and kvcache_bench run of phase 25 after
 its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
-its riders after their cluster's start and warmups) and read just after; launches
+its riders after their cluster's start and warmups, each run of phase 27's
+parts, 27d's before its microbench) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -352,6 +374,13 @@ RING_KV_VALUE = 16 << 10
 # a kernel's time is the median of this many samples of 20 calls each: one
 # sample can sit well off the others, and the printed min and max show it
 REPEATS = 5
+# phase 27: BASELINE.json's harness at the reference's widths
+HARNESS_CHUNK = 4 << 20        # configs #1 and #2: 4 MiB chunks
+HARNESS_SECONDS = 5.0          # storage_bench's and codec_economics' default
+HARNESS_WRITE_OPS = 16         # the Makefile's write-bench --num-ops
+HARNESS_EC_STRIPES = 16        # ec_recovery_bench's default (the CPU rehearsal's)
+ECON_SIZES = (65536, 1 << 20)  # codec_economics' default chunk sizes
+DRILL_ARGS = ["--stripes", "12", "--chunk-size", "65536", "--repair-mode", "both"]
 
 
 def log(msg: str) -> None:
@@ -1657,14 +1686,12 @@ def phase_bench(dev: torch.device, g: torch.Generator) -> tuple[int, dict, dict]
     expect(res["device"] == torch.cuda.get_device_name(0), "the bench line names no card")
     expect(launches["copy3d"] > 0, "the bench must launch H1")
 
-    rc, lines = run_captured(ecb.main, ["--chunk-size", str(SHARD_BYTES), "--decode-batch",
-                                        str(STRIPES), "--decode-ab", "--json"])
-    expect(rc == 0, f"the decode bench failed: {lines[-1]}")
-    rates = {k: v for k, v in json.loads(lines[0])["decode_microbench"].items()
-             if k.endswith("_GB_s")}
-    metric = json.loads(lines[-1])["decode_metric"]
-    expect(len(rates) == 3 and min(rates.values()) > 0
-           and metric[f"rs{K}+{M}_reconstruct_GB_s"] > 0,
+    # the decode microbench alone (phase 27 runs the bench's cluster phases)
+    micro = ecb.decode_microbench(ecb.parse_args(
+        ["--chunk-size", str(SHARD_BYTES), "--decode-batch", str(STRIPES), "--decode-ab"]))
+    log(f"[16] decode microbench: {json.dumps(micro)}")
+    rates = {k: v for k, v in micro.items() if k.endswith("_GB_s")}
+    expect(len(rates) == 3 and min(rates.values()) > 0,
            f"the decode bench gave no fused, word and byte-plane rates: {rates}")
     return e, t, launches
 
@@ -3998,6 +4025,284 @@ def phase_usrbio(dev: torch.device) -> dict:
     return total
 
 
+# --- phase 27: BASELINE.json's harness, configs #1-#4 -------------------------
+
+def harness_backend(dev: torch.device):
+    """The nodes' checksum backend of a card run: "cuda", or on the CPU the
+    same batching backend on B1's plain version."""
+    if dev.type == "cuda":
+        return "cuda"
+    from t3fs_torch.storage.codec_backend import CudaChecksumBackend
+    return lambda: CudaChecksumBackend(device="cpu")
+
+
+def stored_chunks(fabric, replicas_equal: bool) -> int:
+    """Every chunk on every target of an in-process fabric, read from its
+    engine: its length and native host CRC are its ChunkMeta's; with
+    replicas_equal, the chain's replicas hold the same chunks and metas.
+    Returns the chunks checked."""
+    from t3fs_torch.ops.codec import crc32c
+
+    per_node, n = [], 0
+    for node in fabric.nodes:
+        rows = {}
+        for t in node.targets.values():
+            for m in t.engine.all_metas():
+                data = t.engine.read(m.chunk_id)
+                expect(len(data) == m.length and crc32c(data) == m.checksum,
+                       f"[27] node {node.node_id} chunk {m.chunk_id}: the stored "
+                       f"checksum is not the host CRC of its bytes")
+                rows[(m.chunk_id.inode, m.chunk_id.index)] = (
+                    m.length, m.update_ver, m.commit_ver, m.checksum, data)
+                n += 1
+        per_node.append(rows)
+    if replicas_equal:
+        expect(all(r == per_node[0] for r in per_node[:fabric.replicas]),
+               "[27] the chain's replicas differ")
+    return n
+
+
+def batches_line(nodes) -> str:
+    """B1 batches, items and items a batch of each StorageNode (a node on
+    the host CRC has no batches: 0)."""
+    parts = []
+    for node in nodes:
+        b, it = getattr(node.codec, "batches", 0), getattr(node.codec, "batched_items", 0)
+        parts.append(f"n{node.node_id} {b}, {it}, {it / max(b, 1):.2f}")
+    return "per node (B1 batches, items, items a batch): " + ", ".join(parts)
+
+
+def harness_write(dev: torch.device, host: bool) -> tuple[dict, dict]:
+    """27a, config #1: storage_bench --mode write --nodes 1 --replicas 1
+    --chunk-size 4 MiB on the card (host=False: B1 on every write) or on the
+    host CRC (--cpu); every stored chunk's checksum against the host CRC of
+    its bytes.  Returns the result and the launches."""
+    from t3fs_torch.benchmarks import storage_bench as sb
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.testing.fabric import StorageFabric
+    from t3fs_torch.testing.spies import checked_before_stop, spied
+
+    args = sb.parse_args(["--mode", "write", "--nodes", "1", "--replicas", "1",
+                          "--chunk-size", str(HARNESS_CHUNK), "--seconds",
+                          str(HARNESS_SECONDS)] + (["--cpu"] if host else []))
+    if not host:
+        args.checksum_backend = harness_backend(dev)
+    fabrics, checked = [], []
+    t0 = time.perf_counter()
+    with spied(StorageFabric, "start", fabrics), checked_before_stop(
+            StorageFabric, lambda fab: checked.append(stored_chunks(fab, False))):
+        cc.reset_launches()
+        res = asyncio.run(sb.run_bench(args))
+        launches = dict(cc.launches)
+    label = "--cpu (host CRC)" if host else "the card (B1)"
+    log(f"[27a] config #1 on {label}: {res['MB_s']} MB/s, {res['iops']} IOPS, "
+        f"p50 {res['p50_ms']} ms, p99 {res['p99_ms']} ms, {res['ops']} ops, "
+        f"{res['errors']} errors in {res['wall_s']} s; {checked} stored chunks "
+        f"checked; {batches_line(fabrics[0].nodes)}; launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    expect(res["ops"] > 0 and res["errors"] == 0 and checked and checked[0] > 0,
+           f"[27a] config #1 on {label}: {res}")
+    b1 = fabrics[0].nodes[0].codec
+    if host:
+        expect(not any(launches.values()) and not getattr(b1, "batches", 0),
+               "[27a] --cpu launched a kernel")
+    else:
+        expect(b1.batches > 0, "[27a] the node's backend batched nothing")
+        expect(dev.type != "cuda" or launches["crc_words"] > 0,
+               "[27a] B1 was not launched")
+    return res, launches
+
+
+def harness_pipelines(dev: torch.device) -> dict:
+    """27b, config #2: the Makefile's write-bench (--write-ab, 4 MiB chunks,
+    3 replicas, 16 ops) on the card; each pipeline's replicas checked equal
+    and against the host CRC.  Returns the launches."""
+    from t3fs_torch.benchmarks import storage_bench as sb
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.testing.fabric import StorageFabric
+    from t3fs_torch.testing.spies import checked_before_stop
+
+    modes = ("off", "overlap", "streamed")     # write_pipeline_ab's order
+    seen = []
+    t0 = time.perf_counter()
+    with checked_before_stop(StorageFabric, lambda fab: seen.append(
+            (stored_chunks(fab, True), batches_line(fab.nodes)))):
+        cc.reset_launches()
+        res = sb.write_pipeline_ab(value_size=HARNESS_CHUNK, num_ops=HARNESS_WRITE_OPS,
+                                   replicas=3, checksum_backend=harness_backend(dev))
+        launches = dict(cc.launches)
+    expect(len(seen) == len(modes), f"[27b] {len(seen)} fabrics stopped, not 3")
+    stored, nodes = ({m: v[i] for m, v in zip(modes, seen)} for i in (0, 1))
+    for mode in modes:
+        r = res[mode]
+        log(f"[27b] config #2 write_pipeline={mode}: {r['ok']} ok, {r['errors']} "
+            f"errors, {HARNESS_WRITE_OPS * HARNESS_CHUNK / r['wall_s'] / 1e6:.1f} MB/s "
+            f"of client bytes ({r['wall_s']} s), p50 {r['p50_ms']} ms, p99 "
+            f"{r['p99_ms']} ms, p50 against off {r.get('p50_vs_off', 1.0)}; "
+            f"{stored[mode]} chunks checked over 3 equal replicas; {nodes[mode]}")
+        expect(r["ok"] == HARNESS_WRITE_OPS and r["errors"] == 0
+               and stored[mode] == 3 * (HARNESS_WRITE_OPS + 1),
+               f"[27b] write_pipeline={mode}: {r}")
+    expect(dev.type != "cuda" or launches["crc_words"] > 0, "[27b] B1 was not launched")
+    log(f"[27b] launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def harness_economics(dev: torch.device) -> dict:
+    """27c: codec_economics at its default chunk sizes; the batches the seam
+    reached under storage_bench's load, then B1's device rate (CUDA-graph
+    replays) and its host launch cost at each batch, the card's
+    host-to-device rate, and the model table.
+    Returns the launches of the batching runs."""
+    from t3fs_torch.benchmarks import codec_economics as ce
+    from t3fs_torch.ops import cuda_codec as cc
+
+    t0 = time.perf_counter()
+    measured = {}
+    cc.reset_launches()
+    for cs in ECON_SIZES:
+        measured[f"chunk_{cs}"] = asyncio.run(ce.measure_batching(
+            cs, HARNESS_SECONDS, 16, harness_backend(dev)))
+    launches = dict(cc.launches)
+    card = {f"chunk_{cs}": ce.measure_card(cs, measured[f"chunk_{cs}"]["items_per_batch"],
+                                           dev) for cs in ECON_SIZES}
+    h2d = ce.measure_h2d() if dev.type == "cuda" else None
+    res = ce.report(measured, card, h2d, dev)
+    for key, m in measured.items():
+        c = card[key]
+        log(f"[27c] {key}: write {m['write_MB_s']} MB/s, {m['batches']} B1 batches, "
+            f"{m['batched_items']} items, {m['items_per_batch']} items a batch "
+            f"({m['batch_bytes']} B); B1 at {c['rows']} x {c['chunk_words'] * 4} B: "
+            f"{c['kernel_ms'] * 1e3:.2f} us on the device alone (graph-replayed), "
+            f"{c['kernel_GBps']:.3f} GB/s of payload; host cost of one launch "
+            f"{c['launch_us']:.2f} us")
+        for link, row in res["model"][key].items():
+            log(f"[27c]   {key} over {link}: serial {row['serial_GBps_at_measured_batch']} "
+                f"GB/s, pipelined {row['pipelined_GBps_at_measured_batch']} GB/s "
+                f"({row['pipelined_vs_line_rate']} of line rate), min batch for line "
+                f"rate {row['serial_min_batch_for_line_rate']}")
+        expect(m["batches"] > 0 and c["kernel_GBps"] > 0, f"[27c] {key}: {m}, {c}")
+    log(f"[27c] host-to-device copy of {64 << 20} B pinned: {res['h2d_GBps']} GB/s; "
+        f"batching runs' launches {launches}; {time.perf_counter() - t0:.1f} s")
+    expect(dev.type != "cuda" or launches["crc_words"] > 0, "[27c] B1 was not launched")
+    return launches
+
+
+def harness_recovery(dev: torch.device) -> dict:
+    """27d, configs #3 / #4: ec_recovery_bench at its defaults through its
+    main (5 nodes, RS(8+2), 256 KiB chunks, 16 stripes: every stripe read
+    back after the repair), its decode metric line last.  Returns the
+    cluster phases' launches (those before the microbench)."""
+    from t3fs_torch.benchmarks import ec_recovery_bench as ecb
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.testing.cluster import LocalCluster
+    from t3fs_torch.testing.spies import spied
+
+    before_micro: dict = {}
+    orig = ecb.decode_microbench
+
+    def micro(args, device="cuda"):
+        before_micro.update(cc.launches)
+        return orig(args, device)
+
+    servers: list = []
+    t0 = time.perf_counter()
+    ecb.decode_microbench = micro
+    try:
+        with spied(LocalCluster, "start_storage_node", servers, result=True):
+            cc.reset_launches()
+            rc, lines = run_captured(ecb.main, ["--json"] + (
+                [] if dev.type == "cuda" else ["--cpu", "--stripes", str(HARNESS_EC_STRIPES)]),
+                phase=27)
+    finally:
+        ecb.decode_microbench = orig
+    launches = before_micro or dict(cc.launches)
+    expect(rc == 0, f"[27d] ec_recovery_bench failed: {lines[-1]}")
+    res, metric = json.loads(lines[0]), json.loads(lines[-1])["decode_metric"]
+    log(f"[27d] RS({res['k']}+{res['m']}) {res['chunk_size']} B chunks, "
+        f"{res['stripes']} stripes: write {res['write_MB_s']} MB/s, degraded read "
+        f"{res['degraded_read_MB_s']} MB/s, repair {res['repair_MB_s']} MB/s of "
+        f"{res['repaired_shards']} shards (read {res['repair_bytes_read']} B for "
+        f"{res['repair_bytes_repaired']} B); verified {res['verified']}; "
+        f"{batches_line(ss.node for ss in servers)} (a restarted node twice); "
+        f"cluster launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    expect(res["verified"] and res["repair_stripes_failed"] == 0
+           and metric["degraded_read_MB_s"] == res["degraded_read_MB_s"] > 0,
+           f"[27d] {res}")
+    if dev.type == "cuda":
+        expect(metric[f"rs{res['k']}+{res['m']}_reconstruct_GB_s"] > 0,
+               "[27d] no fused decode rate")
+        for name in ("crc_words", "rs_raid6_words", "rs_reconstruct_words"):
+            expect(launches[name] > 0, f"[27d] {name} was not launched")
+    return launches
+
+
+def harness_drill(dev: torch.device, layout: str) -> dict:
+    """27e: repair_drill_bench at the Makefile's repair-drill size on one
+    layout: the node kill under live readers, subshard against full on
+    identical damage, every read and cell verified.  Returns the launches."""
+    from t3fs_torch.benchmarks import repair_drill_bench as drill
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.testing.cluster import LocalCluster
+    from t3fs_torch.testing.spies import spied
+
+    args = drill.parse_args(["--layout", layout, *DRILL_ARGS]
+                            + ([] if dev.type == "cuda" else ["--cpu"]))
+    servers: list = []
+    t0 = time.perf_counter()
+    with spied(LocalCluster, "start_storage_node", servers, result=True):
+        cc.reset_launches()
+        res = asyncio.run(drill.run_bench(args))
+        launches = dict(cc.launches)
+    log(f"[27e] {layout}: {res['lost_shards']} shards lost ({res['lost_bytes']} B), "
+        f"repair_traffic_ratio {res['repair_traffic_ratio']}, verified "
+        f"{res['verified']}, healthy p99 {res['healthy_p99_ms']} ms "
+        f"({res['healthy_samples']} reads), read errors {res['read_errors']}")
+    for c in res["cells"]:
+        log(f"[27e]   {layout} {c['mode']} at budget {c['budget_mbps']} MB/s: read "
+            f"{c['bytes_read']} B for {c['bytes_repaired']} B (x{c['read_amplification']}), "
+            f"reduced {c['reduced_shards']}, full-k {c['fallback_shards']}, "
+            f"{c['repair_s']} s, {c['repair_MB_s']} MB/s, paced waits {c['paced_waits']} "
+            f"({c['paced_wait_s']} s), foreground p50 {c['fg_p50_ms']} / p99 "
+            f"{c['fg_p99_ms']} ms over {c['fg_samples']}")
+        expect(c["bytes_repaired"] == res["lost_bytes"], f"[27e] {layout} cell {c}")
+    log(f"[27e] {layout}: {batches_line(ss.node for ss in servers)} (a restarted "
+        f"node twice); codec {res['codec_stats']}; "
+        f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    cells = {(c["mode"], c["budget_mbps"]): c for c in res["cells"]}
+    limit = 0.5 if layout == "lrc-xor" else 0.7
+    expect(res["verified"] and res["lost_shards"] > 0
+           and res["repair_traffic_ratio"] is not None
+           and res["repair_traffic_ratio"] < limit
+           and cells[("subshard", 0.0)]["fallback_shards"] == 0
+           and cells[("full", 0.0)]["reduced_shards"] == 0,
+           f"[27e] {layout}: ratio {res['repair_traffic_ratio']}, cells {res['cells']}")
+    if dev.type == "cuda":
+        for name in ("crc_words", "repair_words"):
+            expect(launches[name] > 0, f"[27e] {layout}: {name} was not launched")
+    return launches
+
+
+def phase_harness(dev: torch.device) -> dict:
+    """Phase 27 on `dev`: 27a-27e; returns the launches of their main-path
+    runs."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    card, card_launches = harness_write(dev, host=False)
+    host, _ = harness_write(dev, host=True)
+    add_launches(total, card_launches)
+    log(f"[27a] config #1, B1 against the host CRC on this host: "
+        f"{card['MB_s'] / max(host['MB_s'], 1e-9):.3f}x")
+    add_launches(total, harness_pipelines(dev))
+    add_launches(total, harness_economics(dev))
+    add_launches(total, harness_recovery(dev))
+    for layout in ("lrc-xor", "pm-msr"):
+        add_launches(total, harness_drill(dev, layout))
+    log(f"[27] phase: {time.perf_counter() - t0:.1f} s; launches {total}")
+    return total
+
+
 def host_warnings() -> None:
     """usrbio.cpp through the host compiler with -Wall -Wextra (syntax
     only): its includes stand on their own and it warns of nothing."""
@@ -4085,6 +4390,7 @@ def main() -> int:
     phase_fleet()
     log(f"[25] phase: {time.perf_counter() - t0:.1f} s")
     main_runs.append(phase_usrbio(dev))
+    main_runs.append(phase_harness(dev))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

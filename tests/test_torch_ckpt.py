@@ -117,6 +117,9 @@ def port_ec(cluster) -> ECStorageClient:
 
 
 LAY6 = dict(k=4, m=2, chunk_size=2048, chains=[1, 2, 3, 4, 5, 6])
+# for a cluster whose test kills no node: no loop stall under test load
+# reaches it, so no chain is reshaped (nodes self-fence at half of it)
+NO_KILL_HEARTBEAT_TIMEOUT_S = 60.0
 
 
 async def wait_chains_bumped(cluster, nodes) -> None:
@@ -509,8 +512,15 @@ def diff_tree():
 
 async def save_and_dump(p) -> dict:
     """Save diff_tree() as step 3 through package p's own cluster, then
-    dump the manifest file's bytes and every shard's ChunkMeta and bytes."""
-    cluster = cluster_of(p, num_nodes=3, replicas=1, num_chains=6)
+    dump the manifest file's bytes and every shard's ChunkMeta and bytes.
+
+    No node is killed here, so the cluster's heartbeat timeout is one that
+    test load cannot reach: a loop stalled past the default 0.6 s (the
+    reference's Pallas kernels run interpreted in this process) would
+    reshape a chain on one side only and stamp its version into that
+    side's ChunkMeta.  The dump then runs on the initial routing."""
+    cluster = cluster_of(p, num_nodes=3, replicas=1, num_chains=6,
+                         heartbeat_timeout_s=NO_KILL_HEARTBEAT_TIMEOUT_S)
     await cluster.start()
     try:
         lay = p.ec.ECLayout.create(**LAY6)
@@ -521,6 +531,7 @@ async def save_and_dump(p) -> dict:
         man_blob = await fs.read_file(stats.manifest_path)
         man = p.serde.loads(man_blob)
         routing = cluster.mgmtd.state.routing()
+        assert {c.chain_ver for c in routing.chains.values()} == {1}
         shards = {}
         for lf in man.leaves:
             for s in range(lf.num_stripes):

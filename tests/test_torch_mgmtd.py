@@ -289,10 +289,14 @@ def test_resync_between_packages(source, successor):
     node 2 (`successor`'s) is down; writes land; node 2 returns on its old
     disk and is resynced by node 1.  Both replicas then hold the same bytes
     and equal ChunkMeta, chunk for chunk, and a chunk removed during the
-    outage is gone from node 2."""
+    outage is gone from node 2.
+
+    The heartbeat timeout is one test load cannot reach, so a stalled loop
+    never fences node 1 or reshapes the chain on its own; node 2's death is
+    declared by aging its last heartbeat in mgmtd once it is killed."""
     async def body():
         pkgs = {1: source, 2: successor}
-        c = mixed_cluster(successor, pkgs, heartbeat_timeout_s=0.6)
+        c = mixed_cluster(successor, pkgs, heartbeat_timeout_s=30.0)
         await c.start()
         lay = LAYOUTS[successor](chunk_size=96 << 10, chains=[1])
         rng = np.random.default_rng(77)
@@ -303,7 +307,13 @@ def test_resync_between_packages(source, successor):
             for r in await c.sc.write_file_range(lay, 3, 0, b"doomed" * 100):
                 assert r.status.code == 0
             await c.kill_storage_node(2)
-            await wait_for(lambda: len(c.chain().serving()) == 1, what="reshape")
+
+            def node2_dead() -> bool:
+                # its last heartbeat, long past: mgmtd's liveness check fails
+                c.mgmtd.state.last_heartbeat[2] = 0.0
+                return len(c.chain().serving()) == 1
+
+            await wait_for(node2_dead, what="reshape")
             later = rng.integers(0, 256, 3 * (96 << 10), dtype=np.uint8).tobytes()
             for r in await c.sc.write_file_range(lay, 1, 50_000, later):
                 assert r.status.code == 0

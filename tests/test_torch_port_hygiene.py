@@ -23,7 +23,8 @@ for name in mods:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "t3fs"
-             or m.startswith("t3fs."))
+             or m.startswith("t3fs.") or m == "benchmarks"
+             or m.startswith("benchmarks."))
 print(len(mods), bad)
 assert not bad, bad
 for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
@@ -31,7 +32,9 @@ for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
             "kvcache"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worker",
-            "benchmarks.usrbio_bench", "benchmarks.kvcache_scale_bench"):
+            "benchmarks.usrbio_bench", "benchmarks.kvcache_scale_bench",
+            "benchmarks.storage_bench", "benchmarks.codec_economics",
+            "benchmarks.repair_drill_bench", "benchmarks.ec_recovery_bench"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -50,7 +53,8 @@ def test_port_sources_name_no_jax_or_t3fs_module():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1]
-                assert mod.split(".")[0] not in ("jax", "jaxlib", "t3fs"), \
+                assert mod.split(".")[0] not in ("jax", "jaxlib", "t3fs",
+                                                 "benchmarks"), \
                     f"{path}: {s}"
 
 
@@ -91,8 +95,9 @@ def _entry_points():
 
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import (
-        ckpt_bench, devbench, kvcache_bench, kvcache_fleet_bench,
-        kvcache_scale_bench, sort_bench, usrbio_bench)
+        ckpt_bench, codec_economics, devbench, kvcache_bench,
+        kvcache_fleet_bench, kvcache_scale_bench, repair_drill_bench,
+        sort_bench, storage_bench, usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -183,14 +188,27 @@ def _entry_points():
         # the usrbio ring benches, without --cpu
         lambda: usrbio_bench.main(["--file-size", "65536", "--seconds", "0.1"]),
         lambda: kvcache_scale_bench.main(["--smoke"]),
+        # the BASELINE.json harness, without --cpu: storage_bench's timed
+        # loop and fixed-op probes, codec_economics' batching run and card
+        # measurements, the EC recovery bench's cluster phases (also with
+        # --device, the default's name) and the repair drill
+        lambda: storage_bench.main(["--seconds", "0.1"]),
+        lambda: storage_bench.main(["--write-ab", "--num-ops", "1"]),
+        lambda: storage_bench.run_write_bench(65536, 1),
+        lambda: codec_economics.main(["--seconds", "0.1"]),
+        lambda: codec_economics.measure_card(65536, 1.0),
+        codec_economics.measure_h2d,
+        lambda: ecb.run(ecb.parse_args(["--stripes", "1"])),
+        lambda: ecb.run(ecb.parse_args(["--device"])),
+        lambda: repair_drill_bench.main(["--stripes", "2"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(62))
+@pytest.mark.parametrize("i", range(71))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 62
+    assert len(entries) == 71
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -241,6 +259,7 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
 @pytest.mark.parametrize("cmd,key", [
     (["-m", "t3fs_torch.bench"], "metric"),
     (["-m", "t3fs_torch.benchmarks.ec_recovery_bench", "--decode-ab"], "decode_metric"),
+    (["-m", "t3fs_torch.benchmarks.ec_recovery_bench"], "decode_metric"),
     (["-m", "t3fs_torch.benchmarks.b1_probe"], "card")])
 def test_benches_fail_without_gpu_with_an_error_line(cmd, key):
     """Without a GPU a bench prints its result line with an error and exits
@@ -263,6 +282,23 @@ def test_sort_bench_cli_fails_without_gpu():
         pytest.skip("a GPU is present: the command would run for real")
     r = subprocess.run([sys.executable, "-m", "t3fs_torch.benchmarks.sort_bench",
                         "--quick"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert "device='cpu'" in r.stderr and "{" not in r.stdout
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("storage_bench", ["--seconds", "0.1"]),
+    ("storage_bench", ["--write-ab", "--num-ops", "1"]),
+    ("codec_economics", ["--seconds", "0.1"]),
+    ("repair_drill_bench", ["--stripes", "2"])])
+def test_baseline_harness_cli_fails_without_gpu(name, argv):
+    """Without a GPU `python -m t3fs_torch.benchmarks.<name>` exits non-zero
+    before any work and prints no result; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the command would run for real")
+    r = subprocess.run([sys.executable, "-m", f"t3fs_torch.benchmarks.{name}",
+                        *argv], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode != 0
     assert "device='cpu'" in r.stderr and "{" not in r.stdout

@@ -6,6 +6,7 @@ fake client is not ported.
 """
 
 import asyncio
+import socket
 
 import pytest
 
@@ -588,10 +589,17 @@ def test_read_file_ranges_out_of_order_and_overlapping():
 def test_read_file_ranges_retry_exhaustion_surfaces_errors():
     """Chain fully down: after max_retries the per-piece IOResults carry
     the transport error (NOT silently OK, NOT an exception) and the bytes
-    zero-fill, so callers can distinguish hole from failure."""
+    zero-fill, so callers can distinguish hole from failure.
+
+    Once its server stops, the node's routing address moves to a port this
+    test holds bound without listening, so every connect is refused: a
+    stopped server's port could otherwise be reused by a server of another
+    test process, which would answer the retries."""
     async def body():
         fabric = StorageFabric(num_nodes=1, replicas=1)
         await fabric.start()
+        held = socket.socket()
+        held.bind(("127.0.0.1", 0))
         try:
             sc = StorageClient(
                 lambda: fabric.routing, client=fabric.client,
@@ -604,6 +612,7 @@ def test_read_file_ranges_retry_exhaustion_surfaces_errors():
             assert got == data
 
             await fabric.servers[0].stop()
+            fabric.routing.nodes[1].address = "127.0.0.1:%d" % held.getsockname()[1]
             out = await sc.read_file_ranges(
                 lay, [(70, 0, 6000), (70, 1000, 500)])
             for got, results in out:
@@ -616,6 +625,7 @@ def test_read_file_ranges_retry_exhaustion_surfaces_errors():
                         "failure must not read as a hole"
             assert len(out[0][0]) == 6000 and len(out[1][0]) == 500
         finally:
+            held.close()
             await fabric.stop()
     run(body())
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from t3fs_torch.fuse.vfs import FileSystem, PioV
+from t3fs_torch.meta.events import MetaEventType
 from t3fs_torch.storage.types import ChunkId
 from t3fs_torch.testing.cluster import LocalCluster
 from t3fs_torch.utils.status import StatusError
@@ -113,10 +114,29 @@ def test_meta_gc_removes_unlinked_chunks_on_every_replica():
     """The meta server's GC task (0.1 s period, in the cluster's event
     loop) reclaims an unlinked file's chunks from every replica's engine;
     a file removed while open for write keeps its chunks until its write
-    session is released."""
+    session is released.
+
+    No node is killed, so the heartbeat timeout is one test load cannot
+    reach (a fenced replica would miss the REMOVEs until resynced), and
+    each check waits for the GC's own event for the inode, not a fixed
+    number of polls."""
     async def body():
-        c = cluster(num_nodes=3, replicas=3, num_chains=2)
+        c = cluster(num_nodes=3, replicas=3, num_chains=2,
+                    heartbeat_timeout_s=60.0)
         await c.start()
+        reclaimed: dict[int, asyncio.Event] = {}
+        emit = c.meta.store._emit
+
+        def spy(etype, **fields):
+            if etype == MetaEventType.GC:
+                reclaimed.setdefault(fields["inode_id"], asyncio.Event()).set()
+            return emit(etype, **fields)
+
+        async def gc_of(inode) -> None:
+            ev = reclaimed.setdefault(inode.inode_id, asyncio.Event())
+            await asyncio.wait_for(ev.wait(), timeout=60.0)
+
+        c.meta.store._emit = spy
         try:
             fs = FileSystem(c.mc, c.sc)
             await fs.mkdirs("/gc/a")
@@ -147,19 +167,13 @@ def test_meta_gc_removes_unlinked_chunks_on_every_replica():
             held_ino = (await fs.stat("/gc/a/held"))
             await fs.unlink("/gc/g")
             await fs.unlink("/gc/a", recursive=True)
-            for _ in range(100):
-                if present(ino) == 0:
-                    break
-                await asyncio.sleep(0.05)
+            await gc_of(ino)
             assert present(ino) == 0
             assert c.meta.gc_count >= 1
             # the open write session pins the held file's chunks
             assert present(held_ino) > 0
             await c.mc.prune_sessions([held.session_id])
-            for _ in range(100):
-                if present(held_ino) == 0:
-                    break
-                await asyncio.sleep(0.05)
+            await gc_of(held_ino)
             assert present(held_ino) == 0
         finally:
             await c.stop()
