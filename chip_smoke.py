@@ -230,6 +230,27 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      lrc-xor (repair_traffic_ratio < 0.5) and pm-msr (< 0.7), every read
      and cell verified.  Each part prints its B1-B6 launches and B1's items
      a batch on each node
+ 28  the port's own deployment (t3fs_torch/app, README's quick start): a
+     DevCluster at its documented layout, every service its own process
+     (monitor, mgmtd and meta on the durable WAL KV, 3 storage processes,
+     each a CudaChecksumBackend on the card: B1), 2 chains of 3 replicas,
+     1 MiB chunks; meta through the cluster's own spawn, its Parquet event
+     trace where pyarrow is installed, else its JSON log lines (printed).
+     Each process's pid and start wall; a seeded 256 MiB file through
+     FileSystem over MetaClient and StorageClient (MB/s of client bytes
+     both ways), then every chunk of every replica read back over the
+     storage RPCs: equal replicas, each checksum the native host CRC of its
+     bytes; storage2 SIGKILLed (the reshape timed on mgmtd's routing), the
+     file read back, 16 MiB written on the survivors, storage2 restarted
+     (timed to every target SERVING) and every replica checked again;
+     `storage_bench --mgmtd` (a process of its own) at config #2's widths
+     beside phase 27's one-loop figure; mgmtd's routing carries the
+     monitor's scorecard and the monitor's sqlite holds samples of mgmtd,
+     meta and every storage process; then health_smoke's 10 ms straggler on
+     LocalCluster(with_monitor=True), flagged and cleared within its
+     bounds; last, each storage process's B1 batches, items and launches as
+     it logged them at its stop (each > 0), the launches added to the
+     kernels line
  15  the kernels line, the card line, then the ok line last
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -242,7 +263,8 @@ pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups, each sort job and kvcache_bench run of phase 25 after
 its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
 its riders after their cluster's start and warmups, each run of phase 27's
-parts, 27d's before its microbench) and read just after; launches
+parts, 27d's before its microbench; phase 28's storage processes each
+start at 0 and log their count at their stop) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -253,6 +275,7 @@ import asyncio
 import contextlib
 import io
 import json
+import os
 import shutil
 import sys
 import time
@@ -381,6 +404,19 @@ HARNESS_WRITE_OPS = 16         # the Makefile's write-bench --num-ops
 HARNESS_EC_STRIPES = 16        # ec_recovery_bench's default (the CPU rehearsal's)
 ECON_SIZES = (65536, 1 << 20)  # codec_economics' default chunk sizes
 DRILL_ARGS = ["--stripes", "12", "--chunk-size", "65536", "--repair-mode", "both"]
+# phase 28: the port's own deployment at DevCluster's documented layout (3
+# storage processes, 3 replicas, 2 chains, 1 MiB chunks, the durable WAL KV
+# under mgmtd and meta, the monitor on); a 256 MiB file, a 16 MiB one written
+# while storage2 is down, storage_bench --mgmtd at config #2's widths (4 MiB,
+# concurrency 1, 16 chunks)
+DEV_NODES, DEV_REPLICAS, DEV_CHAINS = 3, 3, 2
+DEV_CHUNK = 1 << 20
+DEV_FILE_BYTES = 256 << 20
+DEV_DOWN_FILE_BYTES = 16 << 20
+DEV_KILLED = 2
+DEV_BENCH_ARGS = ["--mode", "write", "--chunk-size", str(HARNESS_CHUNK),
+                  "--num-chunks", str(HARNESS_WRITE_OPS), "--concurrency", "1",
+                  "--seconds", "3", "--json"]
 
 
 def log(msg: str) -> None:
@@ -4113,10 +4149,10 @@ def harness_write(dev: torch.device, host: bool) -> tuple[dict, dict]:
     return res, launches
 
 
-def harness_pipelines(dev: torch.device) -> dict:
+def harness_pipelines(dev: torch.device) -> tuple[dict, dict]:
     """27b, config #2: the Makefile's write-bench (--write-ab, 4 MiB chunks,
     3 replicas, 16 ops) on the card; each pipeline's replicas checked equal
-    and against the host CRC.  Returns the launches."""
+    and against the host CRC.  Returns the launches and the "off" run."""
     from t3fs_torch.benchmarks import storage_bench as sb
     from t3fs_torch.ops import cuda_codec as cc
     from t3fs_torch.testing.fabric import StorageFabric
@@ -4145,7 +4181,7 @@ def harness_pipelines(dev: torch.device) -> dict:
                f"[27b] write_pipeline={mode}: {r}")
     expect(dev.type != "cuda" or launches["crc_words"] > 0, "[27b] B1 was not launched")
     log(f"[27b] launches {launches}; {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, res["off"]
 
 
 def harness_economics(dev: torch.device) -> dict:
@@ -4284,9 +4320,9 @@ def harness_drill(dev: torch.device, layout: str) -> dict:
     return launches
 
 
-def phase_harness(dev: torch.device) -> dict:
+def phase_harness(dev: torch.device) -> tuple[dict, dict]:
     """Phase 27 on `dev`: 27a-27e; returns the launches of their main-path
-    runs."""
+    runs and config #2's "off" run."""
     t0 = time.perf_counter()
     total: dict = {}
     card, card_launches = harness_write(dev, host=False)
@@ -4294,13 +4330,312 @@ def phase_harness(dev: torch.device) -> dict:
     add_launches(total, card_launches)
     log(f"[27a] config #1, B1 against the host CRC on this host: "
         f"{card['MB_s'] / max(host['MB_s'], 1e-9):.3f}x")
-    add_launches(total, harness_pipelines(dev))
+    pipelines, config2 = harness_pipelines(dev)
+    add_launches(total, pipelines)
     add_launches(total, harness_economics(dev))
     add_launches(total, harness_recovery(dev))
     for layout in ("lrc-xor", "pm-msr"):
         add_launches(total, harness_drill(dev, layout))
     log(f"[27] phase: {time.perf_counter() - t0:.1f} s; launches {total}")
-    return total
+    return total, config2
+
+
+def dev_node_targets(routing, node_id: int) -> set[int]:
+    return {t.target_id for ch in routing.chains.values() for t in ch.targets
+            if t.node_id == node_id}
+
+
+def dev_serving(routing, targets: set[int]) -> list[bool]:
+    from t3fs_torch.mgmtd.types import PublicTargetState
+
+    return [t.public_state == PublicTargetState.SERVING
+            for ch in routing.chains.values() for t in ch.targets
+            if t.target_id in targets]
+
+
+async def dev_until(mgmtd, pred, timeout_s: float, what: str) -> float:
+    """Seconds until pred(routing) holds, refreshing mgmtd's routing every
+    20 ms: an event, never a fixed sleep."""
+    t0 = time.perf_counter()
+    while True:
+        await mgmtd.refresh()
+        if pred(mgmtd.routing()):
+            return time.perf_counter() - t0
+        expect(time.perf_counter() - t0 < timeout_s,
+               f"[28] {what}: not within {timeout_s} s")
+        await asyncio.sleep(0.02)
+
+
+async def dev_check_replicas(mgmtd, files: dict, replicas: int) -> int:
+    """Every chunk of every target, read over the storage RPCs from the
+    process that holds it: each chain's replicas hold the same chunks, each
+    chunk's stored checksum is the native host CRC of its bytes, and every
+    chunk of the files {inode: bytes} holds its slice.  Returns the chunks
+    read."""
+    from t3fs_torch.app.dev_cluster import read_replicas
+    from t3fs_torch.net.client import Client
+    from t3fs_torch.ops.codec import crc32c
+
+    cli = Client()
+    try:
+        reps = await read_replicas(cli, mgmtd.routing())
+    finally:
+        await cli.close()
+    by_chain: dict = {}
+    n = 0
+    for (chain_id, target_id), chunks in reps.items():
+        rows = {}
+        for key, (m, data) in chunks.items():
+            expect(len(data) == m.length and crc32c(data) == m.checksum,
+                   f"[28] target {target_id} chunk {key}: the stored checksum "
+                   f"is not the host CRC of its bytes")
+            want = files.get(key[0])
+            if want is not None:
+                expect(data == want[key[1] * DEV_CHUNK:(key[1] + 1) * DEV_CHUNK],
+                       f"[28] target {target_id} chunk {key}: wrong bytes")
+            rows[key] = (m.length, m.checksum, data)
+            n += 1
+        by_chain.setdefault(chain_id, []).append(rows)
+    for chain_id, rows in by_chain.items():
+        expect(len(rows) == replicas and all(r == rows[0] for r in rows),
+               f"[28] chain {chain_id}: its {len(rows)} replicas differ")
+    for ino, data in files.items():
+        held = sum(1 for rows in by_chain.values() for k in rows[0] if k[0] == ino)
+        expect(held == -(-len(data) // DEV_CHUNK),
+               f"[28] inode {ino}: {held} chunks stored")
+    return n
+
+
+def dev_monitor_rows(db_path: str) -> list[tuple]:
+    import sqlite3
+
+    con = sqlite3.connect(f"file:{db_path}?mode=ro", uri=True)
+    try:
+        return con.execute("SELECT node_type, node_id, COUNT(*) FROM metrics "
+                           "GROUP BY node_type, node_id ORDER BY node_type, "
+                           "node_id").fetchall()
+    finally:
+        con.close()
+
+
+async def phase_dev_cluster(dev: torch.device, run_dir: str,
+                            file_bytes: int = DEV_FILE_BYTES,
+                            down_bytes: int = DEV_DOWN_FILE_BYTES,
+                            bench_args: list[str] = DEV_BENCH_ARGS,
+                            one_loop: dict | None = None) -> dict:
+    """Phase 28: the port's DevCluster, each service its own process (the
+    storage processes checksum on the card: B1), driven through the
+    clients a user runs; one_loop is phase 27's config #2 ("off") of this
+    run, printed beside storage_bench --mgmtd.  Returns what the storage
+    processes counted."""
+    import importlib.util
+    import subprocess
+
+    from t3fs_torch.app.base import LogConfig
+    from t3fs_torch.app.dev_cluster import DevCluster
+    from t3fs_torch.app.meta_main import MetaMainConfig
+    from t3fs_torch.client.meta_client import MetaClient
+    from t3fs_torch.client.mgmtd_client import MgmtdClient
+    from t3fs_torch.client.storage_client import StorageClient, StorageClientConfig
+    from t3fs_torch.fuse.vfs import FileSystem
+
+    class TimedCluster(DevCluster):
+        """DevCluster recording when each process was spawned and when it
+        first answered."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.spawned, self.ready = {}, {}
+
+        def _spawn(self, name, module, cfg):
+            self.spawned[name] = time.perf_counter()
+            return super()._spawn(name, module, cfg)
+
+        async def _wait_port(self, name, *a, **kw):
+            addr = await super()._wait_port(name, *a, **kw)
+            self.ready[name] = time.perf_counter()
+            return addr
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 28)
+    data = rng.integers(0, 256, file_bytes, dtype=np.uint8).tobytes()
+    down = rng.integers(0, 256, down_bytes, dtype=np.uint8).tobytes()
+    backend = "cuda" if dev.type == "cuda" else "cpu"
+    c = TimedCluster(run_dir, num_storage=DEV_NODES, replicas=DEV_REPLICAS,
+                     num_chains=DEV_CHAINS, with_meta=False, with_monitor=True,
+                     chunk_size=DEV_CHUNK, checksum_backend=backend)
+    out: dict = {}
+    mgmtd = None
+    try:
+        await c.start()
+        # meta through the cluster's own spawn: the Parquet event trace
+        # needs pyarrow; where it is missing, the JSON log-line mirror only
+        trace = c._path("meta_events.parquet")
+        if importlib.util.find_spec("pyarrow") is None:
+            trace = ""
+            log("[28] no pyarrow on this host: meta starts with "
+                "event_trace_path='' (its events as JSON log lines only)")
+        c._spawn("meta", "t3fs_torch.app.meta_main", MetaMainConfig(
+            node_id=100, mgmtd_address=c.mgmtd_address, kv=c._kv_spec("meta"),
+            default_chunk_size=DEV_CHUNK, port_file=c._path("meta.port"),
+            event_trace_path=trace, monitor_address=c.monitor_address,
+            metrics_period_s=2.0, log=LogConfig(file=c._path("meta.log"))))
+        c.meta_address = await c._wait_port("meta")
+        for name in sorted(c.procs):
+            log(f"[28] {name}: pid {c.procs[name].pid}, up in "
+                f"{c.ready[name] - c.spawned[name]:.2f} s")
+        log(f"[28] cluster up in {time.perf_counter() - t_phase:.1f} s: mgmtd "
+            f"{c.mgmtd_address} (kv {c._kv_spec('mgmtd')}), meta {c.meta_address}, "
+            f"monitor {c.monitor_address}; {DEV_NODES} storage processes on the "
+            f"{backend} checksum backend")
+
+        mgmtd = MgmtdClient(c.mgmtd_address, refresh_period_s=0.2)
+        await mgmtd.start()
+        sc = StorageClient(mgmtd.routing, config=StorageClientConfig(
+            retry_backoff_s=0.1, max_retries=30), refresh_routing=mgmtd.refresh)
+        meta = MetaClient([c.meta_address])
+        fs = FileSystem(meta, sc)
+        try:
+            # (2) the file through FileSystem: write, read, every replica
+            await fs.mkdirs("/p28")
+            t0 = time.perf_counter()
+            await fs.write_file("/p28/big", data)
+            w = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = await fs.read_file("/p28/big")
+            r = time.perf_counter() - t0
+            expect(back == data, "[28] the file read back differs")
+            files = {(await fs.stat("/p28/big")).inode_id: data}
+            t0 = time.perf_counter()
+            n = await dev_check_replicas(mgmtd, files, DEV_REPLICAS)
+            log(f"[28] {file_bytes >> 20} MiB through FileSystem: write "
+                f"{file_bytes / w / 1e6:.1f} MB/s of client bytes ({w:.2f} s), read "
+                f"{file_bytes / r / 1e6:.1f} MB/s ({r:.2f} s); {n} stored chunks "
+                f"over {DEV_CHAINS} chains x {DEV_REPLICAS} replicas read back over "
+                f"the wire, equal and each checksum the host CRC "
+                f"({time.perf_counter() - t0:.1f} s)")
+            out.update(write_MB_s=file_bytes / w / 1e6, read_MB_s=file_bytes / r / 1e6)
+
+            # (3) fail-stop storage2, then its restart
+            victim = dev_node_targets(mgmtd.routing(), DEV_KILLED)
+            await c.kill_node(f"storage{DEV_KILLED}", hard=True)
+            reshape = await dev_until(
+                mgmtd, lambda rt: not any(dev_serving(rt, victim)), 60,
+                "the killed node's targets out of the serving sets")
+            expect(await fs.read_file("/p28/big") == data,
+                   "[28] the file read back differs with storage2 down")
+            await fs.write_file("/p28/while_down", down)
+            files[(await fs.stat("/p28/while_down")).inode_id] = down
+            t0 = time.perf_counter()
+            c.start_storage_node(DEV_KILLED)
+            await c._wait_port(f"storage{DEV_KILLED}")
+            up = time.perf_counter() - t0
+            full = up + await dev_until(
+                mgmtd, lambda rt: all(dev_serving(rt, {
+                    t.target_id for ch in rt.chains.values() for t in ch.targets})),
+                120, "every target back to SERVING")
+            n = await dev_check_replicas(mgmtd, files, DEV_REPLICAS)
+            log(f"[28] SIGKILL storage{DEV_KILLED}: chains reshaped in "
+                f"{reshape:.3f} s (heartbeat timeout {c.heartbeat_timeout_s} s), the "
+                f"file read back equal, {down_bytes >> 20} MiB written on the "
+                f"survivors; restarted (pid {c.procs[f'storage{DEV_KILLED}'].pid}, "
+                f"answering in {up:.2f} s), full redundancy {full:.3f} s after "
+                f"the restart; {n} stored chunks read back, replicas equal")
+            out.update(reshape_s=reshape, full_redundancy_s=full)
+        finally:
+            await meta.close_conn()
+            await sc.close()
+
+        # (4) storage_bench --mgmtd, as a user runs it, against this cluster
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "t3fs_torch.benchmarks.storage_bench",
+                            "--mgmtd", c.mgmtd_address, *bench_args],
+                           capture_output=True, text=True, timeout=300,
+                           env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                               filter(None, [os.path.dirname(os.path.abspath(
+                                   __file__)), os.environ.get("PYTHONPATH")]))))
+        expect(r.returncode == 0, f"[28] storage_bench --mgmtd failed: {r.stderr[-2000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        one = one_loop
+        log(f"[28] storage_bench --mgmtd {' '.join(bench_args)}: {res['MB_s']} MB/s, "
+            f"{res['ops']} ops, {res['errors']} errors, p50 {res['p50_ms']} ms, p99 "
+            f"{res['p99_ms']} ms over {res['wall_s']} s; phase 27's config #2 in one "
+            f"loop (write_pipeline off, this run): "
+            + (f"{HARNESS_WRITE_OPS * HARNESS_CHUNK / one['wall_s'] / 1e6:.1f} MB/s, "
+               f"p50 {one['p50_ms']} ms" if one else "not run")
+            + f" ({time.perf_counter() - t0:.1f} s with the bench's start)")
+        expect(res["ops"] > 0 and res["errors"] == 0, f"[28] storage_bench: {res}")
+        out["bench"] = res
+
+        # (5) the health plane: the scorecard rides mgmtd's routing, and
+        # the monitor holds samples of every process that reports
+        await dev_until(mgmtd, lambda rt: mgmtd.health is not None, 60,
+                        "a scorecard in mgmtd's routing")
+        h = mgmtd.health
+        log(f"[28] mgmtd's routing carries the monitor's scorecard (version "
+            f"{mgmtd._health_version}): " + (", ".join(
+                f"{n.addr} node {n.node_id} {n.state}" for n in h.nodes)
+                or "no node rows (the storage processes sample no spans)"))
+        rows = dev_monitor_rows(c._path("metrics.sqlite"))
+        seen = {(t, i) for t, i, _ in rows}
+        want = {("mgmtd", 1), ("meta", 100)} | {
+            ("storage", i) for i in range(1, DEV_NODES + 1)}
+        log(f"[28] the monitor's sqlite: {rows}")
+        expect(want <= seen, f"[28] no samples from {sorted(want - seen)}")
+    finally:
+        if mgmtd is not None:
+            await mgmtd.stop()
+        await c.stop()
+    tails = {n: open(c._path(f"{n}.out")).read()[-600:]
+             for n in ("mgmtd", "meta", "monitor") if os.path.exists(c._path(f"{n}.out"))}
+    for name, tail in tails.items():
+        expect("Traceback" not in tail, f"[28] {name} failed:\n{tail}")
+
+    # (6) B1 in each storage process, as each logged at its stop
+    from t3fs_torch.app.storage_main import read_codec_counters
+
+    counters = {}
+    for i in range(1, DEV_NODES + 1):
+        got = read_codec_counters(c._path(f"storage{i}.log"))
+        expect(got is not None, f"[28] storage{i} logged no counters at its stop")
+        counters[i] = got
+    log("[28] per storage process (B1 batches, items, items a batch, B1 "
+        "launches; storage2 the restarted process): " + ", ".join(
+            f"storage{i} {v['batches']}, {v['batched_items']}, "
+            f"{v['batched_items'] / max(v['batches'], 1):.2f}, "
+            f"{v['crc_words_launches']}" for i, v in counters.items()))
+    if dev.type == "cuda":
+        for i, v in counters.items():
+            expect(v["backend"] == "cuda" and v["batches"] > 0
+                   and v["crc_words_launches"] > 0,
+                   f"[28] storage{i} ran no B1 batch: {v}")
+    out["launches"] = {"crc_words": sum(v["crc_words_launches"]
+                                        for v in counters.values())}
+    return out
+
+
+def phase_deployment(dev: torch.device, one_loop: dict | None = None) -> dict:
+    """Phase 28 on `dev`: the multi-process cluster, then health_smoke's
+    straggler check on LocalCluster(with_monitor=True); returns B1's
+    launches in the storage processes."""
+    import tempfile
+
+    from t3fs_torch.benchmarks import health_smoke
+    from t3fs_torch.benchmarks.devbench import card_line
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="t3fs-dev-") as run_dir:
+        res = asyncio.run(phase_dev_cluster(dev, run_dir, one_loop=one_loop))
+    hs = asyncio.run(health_smoke.measure("cuda" if dev.type == "cuda" else "cpu"))
+    expect(hs["ok"], f"[28] health_smoke: {hs}")
+    log(f"[28] health_smoke on LocalCluster(with_monitor=True): the 10 ms "
+        f"straggler flagged in {hs['flagged_s']:.2f} s (bound "
+        f"{hs['detect_bound_s']:.1f} s), cleared in {hs['cleared_s']:.2f} s "
+        f"(bound {hs['clear_bound_s']:.1f} s)")
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log(f"[28] phase: {time.perf_counter() - t0:.1f} s on {card}; storage "
+        f"processes' launches {res['launches']}")
+    return res["launches"]
 
 
 def host_warnings() -> None:
@@ -4390,7 +4725,9 @@ def main() -> int:
     phase_fleet()
     log(f"[25] phase: {time.perf_counter() - t0:.1f} s")
     main_runs.append(phase_usrbio(dev))
-    main_runs.append(phase_harness(dev))
+    launches27, config2 = phase_harness(dev)
+    main_runs.append(launches27)
+    main_runs.append(phase_deployment(dev, config2))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -51,26 +51,13 @@ from t3fs_torch import resolve_device
 from t3fs_torch.benchmarks.devbench import card_line, median_ms
 from t3fs_torch.client.ec_client import ECLayout, ECStorageClient
 from t3fs_torch.client.ec_codec import TorchECCodec
+from t3fs_torch.mgmtd.placement import chain_recovery_weights
 from t3fs_torch.ops import cuda_codec as cc
 from t3fs_torch.ops.rs import default_rs
 from t3fs_torch.testing.cluster import LocalCluster
 from t3fs_torch.utils.status import StatusCode
 
 WANT = (0, 1)                # the lost shards: a double erasure
-
-
-def chain_recovery_weights(routing, failed_nodes: set[int]) -> dict[int, int]:
-    """Per-chain standing recovery load when `failed_nodes` are down (the
-    reference's t3fs/mgmtd/placement.py function): each chain weighted by
-    how many of its member targets live on failed nodes.  The repair
-    planner seeds its survivor-pick counters with these weights, so stripe
-    repairs steer around chains the failure already loaded."""
-    weights: dict[int, int] = {}
-    for cid, chain in routing.chains.items():
-        w = sum(1 for t in chain.targets if t.node_id in failed_nodes)
-        if w:
-            weights[cid] = w
-    return weights
 
 
 async def run_bench(args) -> dict:

@@ -9,7 +9,7 @@ INOD/DENT tables (Options{threads,coroutines,items_per_getrange}).
 t3fs keeps both halves, asyncio-idiomatic:
 
 - ``MetaEventLog`` appends :class:`MetaEventTrace` rows to an analytics
-  StructuredTraceLog (Parquet) in the reference, and mirrors
+  :class:`~t3fs_torch.analytics.trace_log.StructuredTraceLog` (Parquet) and mirrors
   each event as one JSON line on the ``t3fs_torch.meta.event`` logger (the
   reference's ``Event::log()``).  Appends are post-commit only: an aborted
   transaction must not leave an event behind.
@@ -18,9 +18,8 @@ t3fs keeps both halves, asyncio-idiomatic:
   threads x coroutines against FDB; here each shard is one asyncio task and
   every page is its own transaction so no long-running read version is held).
 
-The port of t3fs/meta/events.py.  The Parquet trace sink (trace_path) is not
-ported: the port has no analytics package, so MetaEventLog(trace_path=...)
-raises NotImplementedError and the JSON log line is the only sink.
+The port of t3fs/meta/events.py, a copy with its imports re-pointed: the same
+MetaEventTrace columns, so either package reads the other's Parquet.
 """
 
 from __future__ import annotations
@@ -80,11 +79,11 @@ class MetaEventLog:
 
     def __init__(self, trace_path: str | None = None,
                  rows_per_group: int = 1024):
-        if trace_path:
-            raise NotImplementedError(
-                "MetaEventLog(trace_path=...): the Parquet trace sink is not "
-                "ported (ROADMAP A12g)")
         self._trace = None
+        if trace_path:
+            from t3fs_torch.analytics.trace_log import StructuredTraceLog
+            self._trace = StructuredTraceLog(
+                MetaEventTrace, trace_path, rows_per_group=rows_per_group)
         self.appended = 0
 
     def emit(self, etype: MetaEventType, **fields) -> None:

@@ -12,9 +12,8 @@ in-memory (a restarted mgmtd re-learns it within one heartbeat period).
 
 The port of t3fs/mgmtd/service.py; the chain state machine
 (next_chain_state, rotate_last_srv, rotate_as_preferred_order) is the
-reference's line for line.  Not ported: the health puller, which needs
-the monitor service — MgmtdServer.start() raises when monitor_address is
-set rather than run without it.
+reference's line for line, and with monitor_address set the primary pulls
+the monitor's health scorecard into routing, as the reference does.
 """
 
 from __future__ import annotations
@@ -1346,12 +1345,6 @@ class MgmtdServer:
         return [self.service, self.core]
 
     async def start(self) -> None:
-        if self.cfg.monitor_address:
-            # the reference's health puller needs the monitor service,
-            # which is not ported: refuse rather than run without it
-            raise NotImplementedError(
-                "MgmtdConfig.monitor_address is set, but the health puller "
-                "needs t3fs_torch.monitor.service, which is not ported yet")
         acquired = await self.state.try_acquire_lease()
         if acquired:
             log.info("mgmtd %d acquired primary lease", self.state.node_id)
@@ -1362,6 +1355,9 @@ class MgmtdServer:
             asyncio.create_task(self._sessions_checker(),
                                 name="mgmtd-sessions"),
         ]
+        if self.cfg.monitor_address:
+            self._tasks.append(asyncio.create_task(
+                self._health_puller(), name="mgmtd-health"))
 
     async def stop(self) -> None:
         self._stopped.set()
@@ -1401,6 +1397,46 @@ class MgmtdServer:
                 await self.prune_client_sessions_once()
             except Exception:
                 log.exception("sessions checker failed")
+
+    async def _health_puller(self) -> None:
+        """Primary-only pull of the cluster health scorecard from the
+        monitor: Monitor.health → state.health, version-bumped
+        so GetRoutingInfoRsp piggybacks only genuinely newer scorecards.
+        Monitor down = keep the last scorecard; its freshness bound makes
+        staleness explicit to consumers."""
+        from t3fs_torch.monitor.service import HealthReq
+        from t3fs_torch.net.client import Client
+
+        cli = Client()
+        try:
+            while not self._stopped.is_set():
+                await asyncio.sleep(self.cfg.health_pull_period_s)
+                try:
+                    if not await self.state.is_primary():
+                        continue
+                    rsp, _ = await cli.call(
+                        self.cfg.monitor_address, "Monitor.health",
+                        HealthReq(window_s=self.cfg.health_window_s),
+                        timeout=5.0)
+                    health = getattr(rsp, "health", None)
+                    if health is None:
+                        continue
+                    # rollup rows carry the REPORTER's node id; resolve
+                    # serving addrs to routing node ids so consumers can
+                    # join the scorecard against chain targets
+                    addr_to_node = {n.address: n.node_id
+                                    for n in self.state.routing().nodes.values()}
+                    for nh in health.nodes:
+                        nh.node_id = addr_to_node.get(nh.addr, nh.node_id)
+                    self.state.health = health
+                    self.state.health_version += 1
+                except Exception as e:
+                    # warning, not exception: a briefly-unreachable
+                    # monitor is routine and re-tried next period
+                    log.warning("health pull from %s failed: %s",
+                                self.cfg.monitor_address, e)
+        finally:
+            await cli.close()
 
     async def prune_client_sessions_once(self) -> int:
         """Remove expired sessions; returns count pruned (test hook)."""

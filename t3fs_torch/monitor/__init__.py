@@ -1,2 +1,3 @@
-"""Cluster health: the scorecard types mgmtd caches (the monitor service
-itself is not ported)."""
+"""Cluster health and metrics: the monitor collector service (service.py),
+its rollups and ClickHouse sink, the per-process reporter, and the
+scorecard types mgmtd caches (health.py)."""

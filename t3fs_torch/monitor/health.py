@@ -16,8 +16,8 @@ whose newest bucket is older than `freshness_s` is "stale" and a node
 with no rollup rows at all is "unknown"; consumers treat both as
 no-prior rather than healthy.
 
-The port of t3fs/monitor/health.py: mgmtd imports it for ClusterHealth;
-the monitor service that serves it is not ported.
+The port of t3fs/monitor/health.py: mgmtd imports it for ClusterHealth,
+and the monitor service (service.py) computes it.
 """
 
 from __future__ import annotations

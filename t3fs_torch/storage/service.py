@@ -14,8 +14,9 @@ replies to the client only after the whole chain committed
 The port of t3fs/storage/service.py.  Every hop's payload CRC goes through
 the node's checksum backend, by default the CUDA one (B1,
 t3fs_torch/csrc/crc_words.cu, for payloads at or above its cutoff), on
-the rpc plane and on the usrbio ring plane (Storage.ring_*) alike.  Not
-ported yet: the StorageEventTrace log (analytics/trace_log.py).
+the rpc plane and on the usrbio ring plane (Storage.ring_*) alike.  A node
+with a trace_log writes one StorageEventTrace row per update hop, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from t3fs_torch.storage.types import (
     WriteReq, WriteRsp,
     pack_ioresults, unpack_readios, unpack_ring_sqes, unpack_updateio,
 )
+from t3fs_torch.analytics.trace_log import StorageEventTrace
 from t3fs_torch.utils.fault_injection import fault_raise
 from t3fs_torch.utils.metrics import CountRecorder, LatencyRecorder
 from t3fs_torch.utils.status import Status, StatusCode, StatusError, make_error
@@ -177,6 +179,8 @@ class StorageNode:
         # optional CriticalSectionAuditor (t3fs/testing/race.py §5.2 analog);
         # tests/sims set it to assert per-chunk mutual exclusion live
         self.audit = None
+        # optional StructuredTraceLog[StorageEventTrace] (analytics §5.1)
+        self.trace_log = None
         # self-fencing hook (() -> bool): wired to the mgmtd client's
         # lease tracker by StorageServer; True = this node's mgmtd lease
         # lapsed, refuse writes (reference: suicide.cc at lease/2)
@@ -389,12 +393,15 @@ class StorageService:
 
     async def _handle_update(self, io: UpdateIO, payload: bytes,
                              conn: Connection, require_head: bool) -> IOResult:
-        """Trace-wrapped update: when a distributed span is active (sampled
-        request), the trace dict tags the hop's server span with the
-        apply/forward decomposition."""
+        """Trace-wrapped update: one StorageEventTrace row per update hop
+        (reference: StorageOperator writes a StorageEventTrace per update,
+        StorageOperator.cc:356-361,399,461-462,509).  When a distributed
+        span is active (sampled request), the same trace dict also tags the
+        hop's server span with the apply/forward decomposition."""
         sp = tracing.current_span()
-        if sp is None:
+        if self.node.trace_log is None and sp is None:
             return await self._handle_update_inner(io, payload, conn, require_head)
+        t0 = _time.perf_counter()
         result: IOResult | None = None
         trace: dict = {}
         try:
@@ -402,14 +409,36 @@ class StorageService:
                                                      require_head, trace)
             return result
         finally:
-            for k in ("target_id", "apply_s", "forward_s", "forward_status"):
-                if k in trace:
-                    sp.set_tag(k, trace[k])
-            sp.set_tag("chunk", str(io.chunk_id))
-            sp.set_tag("update_ver", io.update_ver)
-            sp.set_tag("head", require_head)
-            if result is not None and result.status.code:
-                sp.set_status(result.status.code)
+            if sp is not None:
+                for k in ("target_id", "apply_s", "forward_s",
+                          "forward_status"):
+                    if k in trace:
+                        sp.set_tag(k, trace[k])
+                sp.set_tag("chunk", str(io.chunk_id))
+                sp.set_tag("update_ver", io.update_ver)
+                sp.set_tag("head", require_head)
+                if result is not None and result.status.code:
+                    sp.set_status(result.status.code)
+            if self.node.trace_log is not None:
+                self._append_event_trace(io, trace, result, t0)
+
+    def _append_event_trace(self, io: UpdateIO, trace: dict,
+                            result: IOResult | None, t0: float) -> None:
+        self.node.trace_log.append(StorageEventTrace(
+                ts=_time.time(), node_id=self.node.node_id,
+                target_id=trace.get("target_id", 0),
+                chain_id=io.chain_id, chunk_id=str(io.chunk_id),
+                update_ver=io.update_ver,
+                commit_ver=result.commit_ver if result else 0,
+                update_type=io.update_type.name.lower()
+                if hasattr(io.update_type, "name") else str(io.update_type),
+                length=io.length,
+                checksum=result.checksum if result else 0,
+                forward_status=trace.get("forward_status", 0),
+                commit_status=result.status.code if result else -1,
+                latency_s=_time.perf_counter() - t0,
+                forward_s=trace.get("forward_s", 0.0),
+                apply_s=trace.get("apply_s", 0.0)))
 
     async def _handle_update_inner(self, io: UpdateIO, payload: bytes,
                                    conn: Connection, require_head: bool,

@@ -9,8 +9,9 @@ StorageServers, each node's payload CRCs on the CUDA checksum backend
 unless the caller asks for another one (checksum_backend: a name, or a
 factory called once per node start, e.g. a CudaChecksumBackend on
 device="cpu"), and with with_meta a MetaServer on the same KV (its GC and
-session pruning run as tasks in this event loop).  Every node runs in this
-one process.  The monitor and the sharded KV are not ported: with_monitor,
+session pruning run as tasks in this event loop), and with with_monitor a
+MonitorCollectorServer, a process-wide reporter and mgmtd's health puller.
+Every node runs in this one process.  The sharded KV is not ported:
 kv_shards and with_kv_distributor raise NotImplementedError.
 """
 
@@ -46,17 +47,18 @@ class LocalCluster:
                  ec_chains: int = 0,
                  trace=None,
                  with_monitor: bool = False,
+                 rollup_cfg=None, health_cfg=None,
                  seed_read_priors: bool = True,
                  kv_shards: int = 0,
                  with_kv_distributor: bool = False,
                  checksum_backend="cuda"):
         unported = [name for name, on in (
-            ("with_monitor", with_monitor), ("kv_shards", kv_shards),
+            ("kv_shards", kv_shards),
             ("with_kv_distributor", with_kv_distributor)) if on]
         if unported:
             raise NotImplementedError(
-                f"LocalCluster({', '.join(unported)}): the monitor and the "
-                "sharded KV are not ported yet (ROADMAP A12g)")
+                f"LocalCluster({', '.join(unported)}): the sharded KV is not "
+                "ported yet (ROADMAP A12g)")
         self.num_nodes = num_nodes
         self.replicas = replicas
         self.num_chains = num_chains
@@ -82,6 +84,15 @@ class LocalCluster:
         # every StorageServer's checksum backend: a name or a factory
         self.checksum_backend = checksum_backend
         self.with_meta = with_meta
+        # with_monitor starts a MonitorCollectorServer (rollups on), a
+        # process-wide MonitorReporter feeding it, and points mgmtd's
+        # health puller at it — the full cluster health plane
+        self.with_monitor = with_monitor
+        self.rollup_cfg = rollup_cfg
+        self.health_cfg = health_cfg
+        self.monitor = None
+        self.reporter = None
+        self.collector = None
         self.meta: MetaServer | None = None
         self.meta_rpc: Server | None = None
         self.mc: MetaClient | None = None
@@ -105,6 +116,23 @@ class LocalCluster:
         return f"{self._tmp.name}/node{node_id}"
 
     async def start(self) -> None:
+        if self.with_monitor:
+            from t3fs_torch.monitor.reporter import MonitorReporter
+            from t3fs_torch.monitor.service import MonitorCollectorServer
+            from t3fs_torch.utils.metrics import Collector
+            self.monitor = MonitorCollectorServer(
+                rollup_cfg=self.rollup_cfg, health_cfg=self.health_cfg)
+            await self.monitor.start()
+            # one process-wide reporter: in-process nodes share the stats
+            # registries anyway, per-node attribution comes from the
+            # server spans' addr tags (see t3fs_torch/monitor/rollup.py)
+            self.reporter = MonitorReporter(self.monitor.address,
+                                            node_id=0, node_type="cluster")
+            self.collector = Collector(period_s=0.25,
+                                       reporters=[self.reporter])
+            self.collector.start()
+            self.mgmtd_cfg.monitor_address = self.monitor.address
+            self.mgmtd_cfg.health_pull_period_s = 0.2
         self.mgmtd = MgmtdServer(self.kv, 1, "", self.mgmtd_cfg,
                                  admin_token="local-admin")
         for svc in self.mgmtd.services:
@@ -369,4 +397,11 @@ class LocalCluster:
         if self.mgmtd:
             await self.mgmtd.stop()
         await self.mgmtd_rpc.stop()
+        if self.reporter is not None:
+            self.collector.stop()
+            self.reporter.close()
+            self.reporter = None
+        if self.monitor is not None:
+            await self.monitor.stop()
+            self.monitor = None
         self._tmp.cleanup()

@@ -593,10 +593,11 @@ def test_acl_matrix_matches_reference(case, pin):
 # ----------------------------------------------------- events and MetaScan
 
 @pytest.mark.parametrize("shards", [1, 7, 8])
-def test_meta_scan_and_event_rows_match_reference(shards, pin):
+def test_meta_scan_and_event_rows_match_reference(shards, pin, tmp_path):
     """tests/test_meta_events.py's op list emits the same typed events
-    and JSON rows in both packages (none for failed ops), and MetaScan's
-    shard bounds and rows are equal."""
+    and JSON rows in both packages (none for failed ops), MetaScan's
+    shard bounds and rows are equal, and the Parquet sinks hold the same
+    rows."""
     async def body(p):
         events, lines = [], []
         log = p.events.MetaEventLog()
@@ -661,8 +662,21 @@ def test_meta_scan_and_event_rows_match_reference(shards, pin):
     assert len(ref[3]) == 84          # 80 dirents + /a, /a/b, /a/b/{f,link}
     for a, b in zip(ref, port):
         assert a == b
-    with pytest.raises(NotImplementedError):
-        PORT.events.MetaEventLog("events.parquet")
+    # the Parquet sink: one pinned event through each package's log, and
+    # either package's reader sees the same row in the other's file
+    pytest.importorskip("pyarrow")
+    from t3fs.analytics.trace_log import read_trace as ref_read
+    from t3fs_torch.analytics.trace_log import read_trace as port_read
+    rows = []
+    for p in PKGS:
+        pin()
+        path = str(tmp_path / f"{p.name}-{shards}.parquet")
+        log = p.events.MetaEventLog(path)
+        log.emit(p.events.MetaEventType.MKDIR, inode_id=7, entry_name="/d")
+        log.close()
+        rows.append((list(ref_read(path)), list(port_read(path))))
+    assert rows[0][0] == rows[0][1] == rows[1][0] == rows[1][1]
+    assert [r["entry_name"] for r in rows[0][0]] == ["/d"]
 
 
 # -------------------------------------------------------------- the wire

@@ -352,14 +352,24 @@ def test_resync_between_packages(source, successor):
 
 
 def test_mgmtd_refuses_the_unported_health_puller():
-    """With a monitor address the reference starts a health puller over
-    the monitor service, which the port does not have: start() refuses."""
+    """With a monitor address mgmtd starts the health puller, as the
+    reference does (the monitor service is ported now): an unreachable
+    monitor keeps no scorecard and stops nothing."""
     async def body():
-        cfg = port_mgmtd.MgmtdConfig(monitor_address="127.0.0.1:1")
-        srv = port_mgmtd.MgmtdServer(port_kv.MemKVEngine(), 1, "", cfg)
-        with pytest.raises(NotImplementedError, match="monitor"):
+        out = []
+        for mgmtd in (ref_mgmtd, port_mgmtd):
+            cfg = mgmtd.MgmtdConfig(monitor_address="127.0.0.1:1",
+                                    health_pull_period_s=0.01)
+            srv = mgmtd.MgmtdServer(ref_kv.MemKVEngine()
+                                    if mgmtd is ref_mgmtd
+                                    else port_kv.MemKVEngine(), 1, "", cfg)
             await srv.start()
-        await srv.stop()
+            await asyncio.sleep(0.1)
+            out.append(([t.get_name() for t in srv._tasks],
+                        srv.state.health, srv.state.health_version))
+            await srv.stop()
+        assert out[0] == out[1]
+        assert "mgmtd-health" in out[1][0] and out[1][1:] == (None, 0)
     asyncio.run(body())
 
 
@@ -367,12 +377,32 @@ def test_mgmtd_refuses_the_unported_health_puller():
                                   {"kv_shards": 2},
                                   {"with_kv_distributor": True}])
 def test_local_cluster_refuses_unported_branches(knob):
-    """The monitor and the sharded KV are not ported: asking for them
-    raises.  The meta service is: with_meta starts a MetaServer on its own
-    RPC server, and the cluster's MetaClient reaches it."""
+    """The sharded KV is not ported: asking for it raises.  The meta
+    service is: with_meta starts a MetaServer on its own RPC server, and
+    the cluster's MetaClient reaches it.  So is the monitor: with_monitor
+    starts a MonitorCollectorServer and points mgmtd's puller at it."""
     from t3fs_torch.meta.service import MetaServer
+    from t3fs_torch.monitor.service import MonitorCollectorServer
     from t3fs_torch.testing.cluster import LocalCluster
 
+    if "with_monitor" in knob:
+        async def monitored():
+            c = LocalCluster(num_nodes=1, replicas=1, checksum_backend="cpu",
+                             heartbeat_timeout_s=60.0, **knob)
+            await c.start()
+            try:
+                assert isinstance(c.monitor, MonitorCollectorServer)
+                assert c.mgmtd_cfg.monitor_address == c.monitor.address
+                for _ in range(200):
+                    if c.mgmtd.state.health_version:
+                        break
+                    await asyncio.sleep(0.05)
+                assert c.mgmtd.state.health_version > 0
+            finally:
+                await c.stop()
+            assert c.monitor is None
+        asyncio.run(monitored())
+        return
     if "with_meta" not in knob:
         with pytest.raises(NotImplementedError, match="A12g"):
             LocalCluster(**knob)

@@ -29,12 +29,18 @@ print(len(mods), bad)
 assert not bad, bad
 for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
             "monitor", "core", "meta", "fuse", "ckpt", "lib", "usrbio",
-            "kvcache"):
+            "kvcache", "app", "analytics"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worker",
             "benchmarks.usrbio_bench", "benchmarks.kvcache_scale_bench",
             "benchmarks.storage_bench", "benchmarks.codec_economics",
-            "benchmarks.repair_drill_bench", "benchmarks.ec_recovery_bench"):
+            "benchmarks.repair_drill_bench", "benchmarks.ec_recovery_bench",
+            "benchmarks.health_smoke", "app.base", "app.mgmtd_main",
+            "app.storage_main", "app.meta_main", "app.monitor_main",
+            "app.dev_cluster", "kv.wal_engine", "mgmtd.placement",
+            "monitor.service", "monitor.rollup", "monitor.reporter",
+            "monitor.clickhouse", "analytics.trace_log",
+            "analytics.trace_query", "utils.mem"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -97,7 +103,7 @@ def _entry_points():
     from t3fs_torch.benchmarks import (
         ckpt_bench, codec_economics, devbench, kvcache_bench,
         kvcache_fleet_bench, kvcache_scale_bench, repair_drill_bench,
-        sort_bench, storage_bench, usrbio_bench)
+        health_smoke, sort_bench, storage_bench, usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -201,14 +207,16 @@ def _entry_points():
         lambda: ecb.run(ecb.parse_args(["--stripes", "1"])),
         lambda: ecb.run(ecb.parse_args(["--device"])),
         lambda: repair_drill_bench.main(["--stripes", "2"]),
+        # the health plane's smoke on LocalCluster(with_monitor=True)
+        lambda: asyncio.run(health_smoke.measure()),
     ]
 
 
-@pytest.mark.parametrize("i", range(71))
+@pytest.mark.parametrize("i", range(72))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 71
+    assert len(entries) == 72
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -219,13 +227,17 @@ def test_cluster_entry_points_name_cuda_by_default():
     maps, and a backend instance reaches the node as it is."""
     import inspect
 
+    from t3fs_torch.app.dev_cluster import DevCluster
+    from t3fs_torch.app.storage_main import StorageMainConfig
     from t3fs_torch.storage.codec_backend import CpuChecksumBackend
     from t3fs_torch.storage.server import StorageConfig, StorageServer
     from t3fs_torch.testing.cluster import LocalCluster
     from t3fs_torch.utils.config import ConfigError
 
     assert StorageConfig().checksum_backend == "cuda"
-    for fn in (StorageServer.__init__, LocalCluster.__init__):
+    assert StorageMainConfig().service.checksum_backend == "cuda"
+    for fn in (StorageServer.__init__, LocalCluster.__init__,
+               DevCluster.__init__):
         assert inspect.signature(fn).parameters[
             "checksum_backend"].default == "cuda"
     cfg = StorageConfig()
@@ -306,24 +318,88 @@ def test_baseline_harness_cli_fails_without_gpu(name, argv):
 
 def test_port_refuses_what_it_has_not_ported():
     """What the port has not ported raises, never runs something else: the
-    monitor and the sharded KV of LocalCluster, and the meta events'
-    Parquet sink (analytics/).  The ring data plane is ported: asking for
-    it builds a client on that plane."""
+    sharded KV of LocalCluster and DevCluster, and open_kv_engine's
+    replicated and sharded specs.  The ring data plane is ported: asking
+    for it builds a client on that plane."""
+    from t3fs_torch.app.dev_cluster import DevCluster
     from t3fs_torch.client.storage_client import (
         StorageClient, StorageClientConfig)
-    from t3fs_torch.meta.events import MetaEventLog
+    from t3fs_torch.kv.wal_engine import open_kv_engine
     from t3fs_torch.testing.cluster import LocalCluster
 
-    for kw in ({"with_monitor": True}, {"kv_shards": 2},
-               {"with_kv_distributor": True}):
+    for kw in ({"kv_shards": 2}, {"with_kv_distributor": True}):
         with pytest.raises(NotImplementedError, match="not ported"):
             LocalCluster(checksum_backend="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        MetaEventLog(trace_path="events.parquet")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DevCluster("unused", kv_shards=2)
+    for spec in ("remote:127.0.0.1:1", "shards:127.0.0.1:1"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            open_kv_engine(spec)
     sc = StorageClient(lambda: None,
                        config=StorageClientConfig(data_plane="ring"))
     assert sc.cfg.data_plane == "ring" and sc._ring_state == {
         "ring": None, "failed": False}
+
+
+def _imported_modules(out_path: Path) -> set[str]:
+    """The modules a child started with PYTHONPROFILEIMPORTTIME=1 imported,
+    from the import-time lines in its output."""
+    mods = set()
+    for line in out_path.read_text().splitlines():
+        if line.startswith("import time:") and line.count("|") == 2:
+            mods.add(line.rsplit("|", 1)[1].strip())
+    return mods
+
+
+def test_spawned_mains_import_no_jax_and_no_t3fs(tmp_path, monkeypatch):
+    """Every *_main child the port's DevCluster spawns (monitor, mgmtd,
+    storage, meta), run through a file write and a clean stop, imports
+    neither jax nor the JAX package: each child reports its imports
+    (PYTHONPROFILEIMPORTTIME) into its <name>.out."""
+    import asyncio
+
+    from t3fs_torch.app.dev_cluster import DevCluster
+    from t3fs_torch.client.meta_client import MetaClient
+    from t3fs_torch.client.mgmtd_client import MgmtdClient
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.fuse.vfs import FileSystem
+
+    monkeypatch.setenv("PYTHONPROFILEIMPORTTIME", "1")
+    monkeypatch.delenv("PYTHONPATH", raising=False)
+    c = DevCluster(str(tmp_path / "run"), num_storage=1, replicas=1,
+                   with_monitor=True, chunk_size=64 << 10,
+                   heartbeat_timeout_s=60.0, checksum_backend="cpu")
+
+    async def body():
+        try:
+            await asyncio.wait_for(c.start(), 240)
+            names = sorted(c.procs)
+            mgmtd = MgmtdClient(c.mgmtd_address)
+            await mgmtd.start()
+            sc = StorageClient(mgmtd.routing, refresh_routing=mgmtd.refresh)
+            meta = MetaClient([c.meta_address])
+            try:
+                fs = FileSystem(meta, sc)
+                await fs.write_file("/f", b"y" * (200 << 10))
+                assert await fs.read_file("/f") == b"y" * (200 << 10)
+            finally:
+                await meta.close_conn()
+                await sc.close()
+                await mgmtd.stop()
+            return names
+        finally:
+            await c.stop()
+
+    names = asyncio.run(asyncio.wait_for(body(), 300))
+    assert names == ["meta", "mgmtd", "monitor", "storage1"]
+    for name in names:
+        mods = _imported_modules(tmp_path / "run" / f"{name}.out")
+        # the *_main module itself runs as __main__; every one imports base
+        assert "t3fs_torch.app.base" in mods, name
+        bad = sorted(m for m in mods
+                     if m.split(".")[0] in ("jax", "jaxlib", "t3fs",
+                                            "benchmarks"))
+        assert not bad, (name, bad)
 
 
 NATIVE_FROM_PORT = """
