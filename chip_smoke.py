@@ -417,6 +417,20 @@ DEV_KILLED = 2
 DEV_BENCH_ARGS = ["--mode", "write", "--chunk-size", str(HARNESS_CHUNK),
                   "--num-chunks", str(HARNESS_WRITE_OPS), "--concurrency", "1",
                   "--seconds", "3", "--json"]
+# phase 29: meta over a range-sharded KV of two kv_main processes, each on
+# its own WAL, the storage processes at phase 28's layout on B1; a 60 s
+# heartbeat timeout (no storage process is killed here); meta_bench --mgmtd
+# at the reference's defaults with 128 files a directory (2048 files), a
+# 64 MiB file through FileSystem, then kv2 SIGKILLed amid creates and
+# respawned over its WAL on the port it first bound
+SHARD_KV = 2
+META_BENCH_ARGS = ["--dirs", "16", "--files", "128", "--concurrency", "32"]
+SHARD_FILE_BYTES = 64 << 20
+SHARD_ACKED = 128           # creates acknowledged before the kill
+SHARD_STREAM = 8            # creates in flight when kv2 dies
+SHARD_STREAM_ACKED = 32     # stream creates acknowledged before the kill
+SHARD_BUDGET_S = 150.0      # kv_distributor_bench runs only inside it
+SHARD_DIST_ARGS = ["--smoke"]
 
 
 def log(msg: str) -> None:
@@ -4366,7 +4380,8 @@ async def dev_until(mgmtd, pred, timeout_s: float, what: str) -> float:
         await asyncio.sleep(0.02)
 
 
-async def dev_check_replicas(mgmtd, files: dict, replicas: int) -> int:
+async def dev_check_replicas(mgmtd, files: dict, replicas: int,
+                             phase: int = 28) -> int:
     """Every chunk of every target, read over the storage RPCs from the
     process that holds it: each chain's replicas hold the same chunks, each
     chunk's stored checksum is the native host CRC of its bytes, and every
@@ -4387,23 +4402,58 @@ async def dev_check_replicas(mgmtd, files: dict, replicas: int) -> int:
         rows = {}
         for key, (m, data) in chunks.items():
             expect(len(data) == m.length and crc32c(data) == m.checksum,
-                   f"[28] target {target_id} chunk {key}: the stored checksum "
+                   f"[{phase}] target {target_id} chunk {key}: the stored checksum "
                    f"is not the host CRC of its bytes")
             want = files.get(key[0])
             if want is not None:
                 expect(data == want[key[1] * DEV_CHUNK:(key[1] + 1) * DEV_CHUNK],
-                       f"[28] target {target_id} chunk {key}: wrong bytes")
+                       f"[{phase}] target {target_id} chunk {key}: wrong bytes")
             rows[key] = (m.length, m.checksum, data)
             n += 1
         by_chain.setdefault(chain_id, []).append(rows)
     for chain_id, rows in by_chain.items():
         expect(len(rows) == replicas and all(r == rows[0] for r in rows),
-               f"[28] chain {chain_id}: its {len(rows)} replicas differ")
+               f"[{phase}] chain {chain_id}: its {len(rows)} replicas differ")
     for ino, data in files.items():
         held = sum(1 for rows in by_chain.values() for k in rows[0] if k[0] == ino)
         expect(held == -(-len(data) // DEV_CHUNK),
-               f"[28] inode {ino}: {held} chunks stored")
+               f"[{phase}] inode {ino}: {held} chunks stored")
     return n
+
+
+def meta_event_trace(phase: int) -> bool:
+    """Whether meta can write its Parquet event trace here: it needs
+    pyarrow, which the card's machine lacks; without it meta's events go
+    to its log as JSON lines only."""
+    import importlib.util
+
+    if importlib.util.find_spec("pyarrow") is not None:
+        return True
+    log(f"[{phase}] no pyarrow on this host: meta starts with "
+        "event_trace_path='' (its events as JSON log lines only)")
+    return False
+
+
+def timed_cluster(*a, **kw):
+    """A DevCluster recording when each process was spawned (spawned) and
+    when it first answered (ready), by name."""
+    from t3fs_torch.app.dev_cluster import DevCluster
+
+    class TimedCluster(DevCluster):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.spawned, self.ready = {}, {}
+
+        def _spawn(self, name, module, cfg, env=None):
+            self.spawned[name] = time.perf_counter()
+            return super()._spawn(name, module, cfg, env)
+
+        async def _wait_port(self, name, *a, **kw):
+            addr = await super()._wait_port(name, *a, **kw)
+            self.ready[name] = time.perf_counter()
+            return addr
+
+    return TimedCluster(*a, **kw)
 
 
 def dev_monitor_rows(db_path: str) -> list[tuple]:
@@ -4428,59 +4478,26 @@ async def phase_dev_cluster(dev: torch.device, run_dir: str,
     clients a user runs; one_loop is phase 27's config #2 ("off") of this
     run, printed beside storage_bench --mgmtd.  Returns what the storage
     processes counted."""
-    import importlib.util
     import subprocess
 
-    from t3fs_torch.app.base import LogConfig
-    from t3fs_torch.app.dev_cluster import DevCluster
-    from t3fs_torch.app.meta_main import MetaMainConfig
     from t3fs_torch.client.meta_client import MetaClient
     from t3fs_torch.client.mgmtd_client import MgmtdClient
     from t3fs_torch.client.storage_client import StorageClient, StorageClientConfig
     from t3fs_torch.fuse.vfs import FileSystem
-
-    class TimedCluster(DevCluster):
-        """DevCluster recording when each process was spawned and when it
-        first answered."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.spawned, self.ready = {}, {}
-
-        def _spawn(self, name, module, cfg):
-            self.spawned[name] = time.perf_counter()
-            return super()._spawn(name, module, cfg)
-
-        async def _wait_port(self, name, *a, **kw):
-            addr = await super()._wait_port(name, *a, **kw)
-            self.ready[name] = time.perf_counter()
-            return addr
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 28)
     data = rng.integers(0, 256, file_bytes, dtype=np.uint8).tobytes()
     down = rng.integers(0, 256, down_bytes, dtype=np.uint8).tobytes()
     backend = "cuda" if dev.type == "cuda" else "cpu"
-    c = TimedCluster(run_dir, num_storage=DEV_NODES, replicas=DEV_REPLICAS,
-                     num_chains=DEV_CHAINS, with_meta=False, with_monitor=True,
-                     chunk_size=DEV_CHUNK, checksum_backend=backend)
+    c = timed_cluster(run_dir, num_storage=DEV_NODES, replicas=DEV_REPLICAS,
+                      num_chains=DEV_CHAINS, with_meta=True, with_monitor=True,
+                      chunk_size=DEV_CHUNK, checksum_backend=backend,
+                      meta_event_trace=meta_event_trace(28))
     out: dict = {}
     mgmtd = None
     try:
         await c.start()
-        # meta through the cluster's own spawn: the Parquet event trace
-        # needs pyarrow; where it is missing, the JSON log-line mirror only
-        trace = c._path("meta_events.parquet")
-        if importlib.util.find_spec("pyarrow") is None:
-            trace = ""
-            log("[28] no pyarrow on this host: meta starts with "
-                "event_trace_path='' (its events as JSON log lines only)")
-        c._spawn("meta", "t3fs_torch.app.meta_main", MetaMainConfig(
-            node_id=100, mgmtd_address=c.mgmtd_address, kv=c._kv_spec("meta"),
-            default_chunk_size=DEV_CHUNK, port_file=c._path("meta.port"),
-            event_trace_path=trace, monitor_address=c.monitor_address,
-            metrics_period_s=2.0, log=LogConfig(file=c._path("meta.log"))))
-        c.meta_address = await c._wait_port("meta")
         for name in sorted(c.procs):
             log(f"[28] {name}: pid {c.procs[name].pid}, up in "
                 f"{c.ready[name] - c.spawned[name]:.2f} s")
@@ -4638,6 +4655,299 @@ def phase_deployment(dev: torch.device, one_loop: dict | None = None) -> dict:
     return res["launches"]
 
 
+async def kv_shard_rows(client, addresses: list[str]) -> list[dict]:
+    """Each kv_main's rows by KeyPrefix (Kv.read_range over each prefix),
+    its 2PC decision records by verdict, its seq and role (Kv.status)."""
+    from t3fs_torch.kv.prefixes import KeyPrefix
+    from t3fs_torch.kv.service import DEC_PREFIX, KvRangeReq
+
+    out = []
+    for addr in addresses:
+        rows = {}
+        for p in sorted(KeyPrefix, key=lambda p: p.value):
+            rsp, _ = await client.call(addr, "Kv.read_range", KvRangeReq(
+                begin=p.value, end=p.value + b"\xff"))
+            if rsp.keys:
+                rows[p.value.decode()] = len(rsp.keys)
+        rsp, _ = await client.call(addr, "Kv.read_range", KvRangeReq(
+            begin=DEC_PREFIX, end=DEC_PREFIX + b"\xff"))
+        verdicts = [v[:1].decode() for v in rsp.values]
+        st, _ = await client.call(addr, "Kv.status", None)
+        out.append({"address": addr, "rows": rows,
+                    "decisions": {v: verdicts.count(v) for v in "CA"},
+                    "seq": st.seq, "primary": st.ok})
+    return out
+
+
+def shard_rows_line(shards: list[dict]) -> str:
+    return "; ".join(
+        f"kv{i} {s['address']}: seq {s['seq']}, rows "
+        + (", ".join(f"{p} {n}" for p, n in s["rows"].items()) or "none")
+        + f", 2PC decisions here {s['decisions']['C']} commit / "
+        f"{s['decisions']['A']} abort"
+        for i, s in enumerate(shards, 1))
+
+
+async def phase_sharded_meta(dev: torch.device, run_dir: str,
+                             file_bytes: int = SHARD_FILE_BYTES,
+                             bench_args: list[str] = META_BENCH_ARGS,
+                             acked_creates: int = SHARD_ACKED,
+                             stream_acked: int = SHARD_STREAM_ACKED) -> dict:
+    """Phase 29: meta over the range-sharded KV of two kv_main processes
+    (DevCluster(kv_shards=2): a shards: spec split at the KeyPrefix
+    boundaries, every meta op that touches both shards a cross-process
+    2PC), the storage processes checksumming on the card (B1).  Returns
+    what the storage processes counted and the phase's figures."""
+    import subprocess
+
+    from t3fs_torch.app.kv_main import read_recovered
+    from t3fs_torch.app.storage_main import read_codec_counters
+    from t3fs_torch.client.meta_client import MetaClient
+    from t3fs_torch.client.mgmtd_client import MgmtdClient
+    from t3fs_torch.client.storage_client import StorageClient, StorageClientConfig
+    from t3fs_torch.fuse.vfs import FileSystem
+    from t3fs_torch.net.client import Client
+    from t3fs_torch.utils.status import StatusCode, StatusError
+
+    t_phase = time.perf_counter()
+    data = np.random.default_rng(SEED + 29).integers(
+        0, 256, file_bytes, dtype=np.uint8).tobytes()
+    backend = "cuda" if dev.type == "cuda" else "cpu"
+    c = timed_cluster(run_dir, num_storage=DEV_NODES, replicas=DEV_REPLICAS,
+                      num_chains=DEV_CHAINS, with_meta=True, durable=True,
+                      kv_shards=SHARD_KV, chunk_size=DEV_CHUNK,
+                      heartbeat_timeout_s=60.0, checksum_backend=backend,
+                      meta_event_trace=meta_event_trace(29))
+    out: dict = {}
+    admin = Client()
+    mgmtd = None
+    try:
+        await c.start()
+        for name in sorted(c.procs):
+            log(f"[29] {name}: pid {c.procs[name].pid}, up in "
+                f"{c.ready[name] - c.spawned[name]:.2f} s")
+        spec = next(line.split("=", 1)[1].strip().strip('"')
+                    for line in open(c._path("meta.toml"))
+                    if line.startswith("kv ="))
+        expect(spec.startswith("shards:"), f"[29] meta's kv spec is {spec}")
+        log(f"[29] cluster up in {time.perf_counter() - t_phase:.1f} s: mgmtd "
+            f"{c.mgmtd_address}, meta {c.meta_address} over kv {spec} (kv1, "
+            f"kv2 on {c._kv_spec('kv1')} and {c._kv_spec('kv2')}); "
+            f"{DEV_NODES} storage processes on the {backend} checksum backend")
+        kv_pids = {c.procs[f"kv{i}"].pid for i in range(1, SHARD_KV + 1)}
+        for pid in kv_pids:
+            env = open(f"/proc/{pid}/environ", "rb").read().split(b"\0")
+            expect(b"CUDA_VISIBLE_DEVICES=" in env,
+                   f"[29] kv_main pid {pid} runs with a GPU visible")
+
+        # (1) meta_bench --mgmtd, as a user runs it, against this cluster
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "t3fs_torch.benchmarks.meta_bench",
+                            "--mgmtd", c.mgmtd_address, *bench_args, "--json"],
+                           capture_output=True, text=True, timeout=600,
+                           env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                               filter(None, [os.path.dirname(os.path.abspath(
+                                   __file__)), os.environ.get("PYTHONPATH")]))))
+        expect(r.returncode == 0, f"[29] meta_bench --mgmtd failed: {r.stderr[-2000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        phases = ("mkdir", "create", "stat", "batch_stat", "list", "rename", "remove")
+        log(f"[29] meta_bench --mgmtd {' '.join(bench_args)} ({res['total_files']} "
+            f"files, {time.perf_counter() - t0:.1f} s with the bench's start): "
+            + ", ".join(f"{p} {res[p]['ops_s']} ops/s ({res[p]['ops']} ops, "
+                        f"{res[p]['wall_s']} s)" for p in phases)
+            + f"; batch_stat {res['batch_stat']['inodes_s']} inodes/s")
+        expect(all(res[p]["ops"] > 0 for p in phases), f"[29] meta_bench: {res}")
+        out["meta_bench"] = {p: res[p]["ops_s"] for p in phases}
+
+        # (2) both kv_main processes committed: rows and seqs
+        shards = await kv_shard_rows(admin, c.kv_addresses)
+        log(f"[29] after meta_bench: {shard_rows_line(shards)}")
+        for i, sh in enumerate(shards, 1):
+            expect(sh["rows"] and sh["seq"] > 0 and sh["primary"],
+                   f"[29] kv{i} committed nothing: {sh}")
+        expect(sum(sh["decisions"]["C"] for sh in shards) > 0,
+               "[29] no cross-shard commit was decided")
+
+        mgmtd = MgmtdClient(c.mgmtd_address, refresh_period_s=0.2)
+        await mgmtd.start()
+        sc = StorageClient(mgmtd.routing, config=StorageClientConfig(
+            retry_backoff_s=0.1, max_retries=30), refresh_routing=mgmtd.refresh)
+        meta = MetaClient([c.meta_address])
+        fs = FileSystem(meta, sc)
+        try:
+            # (3) the data traffic: a file through FileSystem, on B1
+            await fs.mkdirs("/p29")
+            t0 = time.perf_counter()
+            await fs.write_file("/p29/big", data)
+            w = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = await fs.read_file("/p29/big")
+            rd = time.perf_counter() - t0
+            expect(back == data, "[29] the file read back differs")
+            files = {(await fs.stat("/p29/big")).inode_id: data}
+            n = await dev_check_replicas(mgmtd, files, DEV_REPLICAS, phase=29)
+            log(f"[29] {file_bytes >> 20} MiB through FileSystem: write "
+                f"{file_bytes / w / 1e6:.1f} MB/s ({w:.2f} s), read "
+                f"{file_bytes / rd / 1e6:.1f} MB/s ({rd:.2f} s); {n} stored "
+                f"chunks read back over the wire, replicas equal, each "
+                f"checksum the host CRC")
+            out.update(write_MB_s=file_bytes / w / 1e6, read_MB_s=file_bytes / rd / 1e6)
+
+            # (4) durability: kv2 SIGKILLed amid creates, respawned over its WAL
+            await meta.mkdirs("/p29/drill")
+            acked: list[str] = []
+            names = [f"/p29/drill/a{i:04d}" for i in range(acked_creates)]
+            t0 = time.perf_counter()
+            for i in range(0, len(names), 16):
+                await asyncio.gather(*(meta.create(p) for p in names[i:i + 16]))
+            acked += names
+            log(f"[29] {len(names)} creates acknowledged in "
+                f"{time.perf_counter() - t0:.2f} s")
+            stop = asyncio.Event()
+            failed: list[int] = []
+
+            async def stream(k: int) -> None:
+                j = 0
+                while not stop.is_set():
+                    p = f"/p29/drill/s{k}-{j:05d}"
+                    j += 1
+                    try:
+                        await meta.create(p)
+                    except StatusError as e:
+                        failed.append(int(e.code))
+                        return
+                    acked.append(p)
+
+            before = len(acked)
+            writers = [asyncio.create_task(stream(k)) for k in range(SHARD_STREAM)]
+            t0 = time.perf_counter()
+            while len(acked) - before < stream_acked:
+                expect(time.perf_counter() - t0 < 60 and not failed,
+                       f"[29] the create stream stalled: {failed}")
+                await asyncio.sleep(0.005)
+            st, _ = await admin.call(c.kv_addresses[1], "Kv.status", None)
+            await c.kill_node("kv2", hard=True)
+            stop.set()
+            await asyncio.wait_for(asyncio.gather(*writers), 120)
+            log(f"[29] SIGKILL kv2 (seq {st.seq}) with {SHARD_STREAM} creates in "
+                f"flight: {len(acked) - before} stream creates acknowledged, "
+                f"{len(failed)} refused while it was down (codes "
+                f"{sorted(set(failed))})")
+            t0 = time.perf_counter()
+            addr = await c.restart_kv_node(2)
+            up = time.perf_counter() - t0
+            expect(addr == c.kv_addresses[1], f"[29] kv2 came back on {addr}")
+            while True:
+                try:
+                    await asyncio.wait_for(meta.create("/p29/drill/after"), 30)
+                    break
+                except StatusError as e:
+                    expect(time.perf_counter() - t0 < 60,
+                           f"[29] meta commits nothing after the respawn: {e}")
+                    await asyncio.sleep(0.02)
+            commit_s = time.perf_counter() - t0
+            recovered = read_recovered(c._path("kv2.log"))
+            expect(len(recovered) == 2, f"[29] kv2's recover_prepared lines: {recovered}")
+            missing = []
+            for i in range(0, len(acked), 64):
+                got = await asyncio.gather(*(meta.stat(p) for p in acked[i:i + 64]),
+                                           return_exceptions=True)
+                missing += [(p, repr(g)) for p, g in zip(acked[i:i + 64], got)
+                            if isinstance(g, BaseException)]
+            expect(not missing, f"[29] {len(missing)} acknowledged creates lost: "
+                   f"{missing[:8]}")
+            ino = (await meta.stat("/p29/drill/a0000")).inode_id
+            await meta.rename("/p29/drill/a0000", "/p29/renamed")
+            expect((await meta.stat("/p29/renamed")).inode_id == ino,
+                   "[29] the renamed file has another inode")
+            try:
+                await meta.stat("/p29/drill/a0000")
+                expect(False, "[29] the rename left its source")
+            except StatusError as e:
+                expect(e.code == StatusCode.META_NOT_FOUND,
+                       f"[29] stat after rename: {e}")
+            st2, _ = await admin.call(addr, "Kv.status", None)
+            log(f"[29] kv2 respawned over its WAL on {addr} (pid "
+                f"{c.procs['kv2'].pid}), answering in {up:.2f} s at seq {st2.seq}, "
+                f"recover_prepared re-armed {recovered[-1]['recovered']} prepared "
+                f"txn(s), {recovered[-1]['resolved']} resolved through the decider "
+                f"before it listened; meta's "
+                f"next commit {commit_s:.3f} s after the respawn began; all "
+                f"{len(acked)} acknowledged creates stat, and a cross-shard rename "
+                f"committed")
+            out.update(kv2_up_s=up, next_commit_s=commit_s, acked=len(acked),
+                       **recovered[-1])
+            shards = await kv_shard_rows(admin, c.kv_addresses)
+            log(f"[29] at the end: {shard_rows_line(shards)}")
+        finally:
+            await meta.close_conn()
+            await sc.close()
+        if dev.type == "cuda":
+            r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                                "--format=csv,noheader"], capture_output=True,
+                               text=True, timeout=60)
+            pids = {int(x) for x in r.stdout.split() if x.strip().isdigit()}
+            kv_pids = {c.procs[f"kv{i}"].pid for i in range(1, SHARD_KV + 1)}
+            expect(not pids & kv_pids, f"[29] a kv_main holds a CUDA context: {pids}")
+            log(f"[29] processes with a CUDA context per nvidia-smi: {sorted(pids)}; "
+                f"the kv_main processes ({sorted(kv_pids)}) run with no GPU visible")
+    finally:
+        if mgmtd is not None:
+            await mgmtd.stop()
+        await admin.close()
+        await c.stop()
+    for n in ("mgmtd", "meta", "kv1", "kv2"):
+        tail = open(c._path(f"{n}.out")).read()[-600:]
+        expect("Traceback" not in tail, f"[29] {n} failed:\n{tail}")
+
+    counters = {}
+    for i in range(1, DEV_NODES + 1):
+        got = read_codec_counters(c._path(f"storage{i}.log"))
+        expect(got is not None, f"[29] storage{i} logged no counters at its stop")
+        counters[i] = got
+    log("[29] per storage process (B1 batches, items, B1 launches): " + ", ".join(
+        f"storage{i} {v['batches']}, {v['batched_items']}, {v['crc_words_launches']}"
+        for i, v in counters.items()))
+    if dev.type == "cuda":
+        for i, v in counters.items():
+            expect(v["backend"] == "cuda" and v["batches"] > 0
+                   and v["crc_words_launches"] > 0,
+                   f"[29] storage{i} ran no B1 batch: {v}")
+    out["launches"] = {"crc_words": sum(v["crc_words_launches"]
+                                        for v in counters.values())}
+    return out
+
+
+def phase_sharded(dev: torch.device) -> dict:
+    """Phase 29 on `dev`: meta over two kv_main shards, then, while the
+    phase stays inside SHARD_BUDGET_S, kv_distributor_bench --smoke;
+    returns B1's launches in the storage processes."""
+    import tempfile
+
+    from t3fs_torch.benchmarks import kv_distributor_bench as kdb
+    from t3fs_torch.benchmarks.devbench import card_line
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="t3fs-shard-") as run_dir:
+        res = asyncio.run(phase_sharded_meta(dev, run_dir))
+    left = SHARD_BUDGET_S - (time.perf_counter() - t0)
+    if left > 40:
+        t1 = time.perf_counter()
+        rc = asyncio.run(kdb.main_async(kdb.parse_args(SHARD_DIST_ARGS)))
+        expect(rc == 0, "[29] kv_distributor_bench --smoke failed a gate")
+        log(f"[29] kv_distributor_bench {' '.join(SHARD_DIST_ARGS)}: every gate "
+            f"passed ({time.perf_counter() - t1:.1f} s)")
+    else:
+        log(f"[29] kv_distributor_bench not run: {left:.0f} s of the phase's "
+            f"{SHARD_BUDGET_S:.0f} s left (the CPU tests run its --smoke)")
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log(f"[29] phase: {time.perf_counter() - t0:.1f} s on {card}; meta_bench "
+        f"ops/s {res['meta_bench']}; kv2 answering {res['kv2_up_s']:.2f} s and "
+        f"meta's next commit {res['next_commit_s']:.3f} s after its respawn; "
+        f"storage processes' launches {res['launches']}")
+    return res["launches"]
+
+
 def host_warnings() -> None:
     """usrbio.cpp through the host compiler with -Wall -Wextra (syntax
     only): its includes stand on their own and it warns of nothing."""
@@ -4728,6 +5038,7 @@ def main() -> int:
     launches27, config2 = phase_harness(dev)
     main_runs.append(launches27)
     main_runs.append(phase_deployment(dev, config2))
+    main_runs.append(phase_sharded(dev))
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -18,8 +18,11 @@ process without a GPU dies at startup and start() raises with its log tail.
 The parent builds the host library, and for "cuda" the kernels, before it
 spawns anything, so the children load them and none compiles.  Each
 process logs to <run_dir>/<name>.log and its stdout and stderr go to
-<run_dir>/<name>.out.  The sharded KV (kv_shards > 0) needs kv_main and
-kv/{service,remote,shard}, not ported yet: it raises NotImplementedError.
+<run_dir>/<name>.out.  With kv_shards > 0 meta runs over a range-sharded
+KV of that many kv_main processes, each on its own WAL, which never touch
+the card (they are spawned with no GPU visible); restart_kv_node respawns
+one from its TOML on the port it first bound.  meta_event_trace=False
+starts meta without its Parquet event trace (which needs pyarrow).
 read_replicas (not in the reference) reads every replica of every chunk
 back over the storage RPCs, for checks that span processes.
 """
@@ -61,12 +64,8 @@ class DevCluster:
                  chunk_size: int = 1 << 20,
                  heartbeat_timeout_s: float = 2.0,
                  kv_shards: int = 0,
-                 checksum_backend: str = "cuda"):
-        if kv_shards:
-            raise NotImplementedError(
-                "DevCluster(kv_shards>0): kv_main and the sharded KV "
-                "(kv/{service,remote,shard}) are not ported yet "
-                "(ROADMAP A12g)")
+                 checksum_backend: str = "cuda",
+                 meta_event_trace: bool = True):
         self.run_dir = os.path.abspath(run_dir)
         self.num_storage = num_storage
         self.replicas = replicas
@@ -76,8 +75,14 @@ class DevCluster:
         self.durable = durable
         self.chunk_size = chunk_size
         self.heartbeat_timeout_s = heartbeat_timeout_s
+        # >0: run meta over a range-sharded KV deployment of this many
+        # standalone kv_main processes (split at KeyPrefix boundaries;
+        # see t3fs_torch/kv/shard.py)
+        self.kv_shards = kv_shards
+        self.kv_addresses: list[str] = []
         # every storage process's [service] checksum_backend
         self.checksum_backend = checksum_backend
+        self.meta_event_trace = meta_event_trace
         self.procs: dict[str, subprocess.Popen] = {}
         self.mgmtd_address = ""
         self.meta_address = ""
@@ -104,7 +109,8 @@ class DevCluster:
             f.write(to_toml(cfg.to_dict()))
         return path
 
-    def _spawn(self, name: str, module: str, cfg) -> subprocess.Popen:
+    def _spawn(self, name: str, module: str, cfg,
+               env: dict | None = None) -> subprocess.Popen:
         cfg_path = self._write_config(name, cfg)
         logf = open(self._path(f"{name}.out"), "w")
         proc = subprocess.Popen(
@@ -113,7 +119,7 @@ class DevCluster:
             env={**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [
                 os.path.dirname(os.path.dirname(os.path.dirname(
                     os.path.abspath(__file__)))),
-                os.environ.get("PYTHONPATH", "")]))},
+                os.environ.get("PYTHONPATH", "")])), **(env or {})},
             cwd=self.run_dir)
         self.procs[name] = proc
         return proc
@@ -153,7 +159,18 @@ class DevCluster:
 
     # --- lifecycle ---
 
+    def _kv_prefixes(self) -> list[bytes]:
+        from t3fs_torch.kv.prefixes import KeyPrefix
+        prefixes = sorted(p.value for p in KeyPrefix)
+        if self.kv_shards > len(prefixes):
+            raise ValueError(
+                f"kv_shards={self.kv_shards} exceeds the "
+                f"{len(prefixes)} KeyPrefix split points")
+        return prefixes
+
     async def start(self) -> None:
+        if self.kv_shards > 0 and self.with_meta:
+            self._kv_prefixes()      # refuse before any process is spawned
         os.makedirs(self.run_dir, exist_ok=True)
         # build once here: children racing to build the same libraries
         # would each pay the compile
@@ -191,17 +208,63 @@ class DevCluster:
 
         await self._install_chains()
 
+        meta_kv = self._kv_spec("meta")
+        if self.kv_shards > 0 and self.with_meta:
+            for i in range(1, self.kv_shards + 1):
+                self._spawn_kv(i, self._kv_config(i))
+            self.kv_addresses = [await self._wait_port(f"kv{i}", probe="Kv.status")
+                                 for i in range(1, self.kv_shards + 1)]
+            # split at KeyPrefix boundaries (all user keys carry 4-byte
+            # printable prefixes — an even byte-split would land everything
+            # in one shard): N groups get N contiguous runs of prefixes
+            prefixes = self._kv_prefixes()
+            parts = []
+            for i, addr in enumerate(self.kv_addresses):
+                if i:
+                    split = prefixes[len(prefixes) * i // self.kv_shards]
+                    parts.append(split.hex())
+                parts.append(addr)
+            meta_kv = "shards:" + ";".join(parts)
+
         if self.with_meta:
             self._spawn("meta", "t3fs_torch.app.meta_main", MetaMainConfig(
                 node_id=100, mgmtd_address=self.mgmtd_address,
-                kv=self._kv_spec("meta"),
+                kv=meta_kv,
                 default_chunk_size=self.chunk_size,
                 port_file=self._path("meta.port"),
-                event_trace_path=self._path("meta_events.parquet"),
+                event_trace_path=(self._path("meta_events.parquet")
+                                  if self.meta_event_trace else ""),
                 monitor_address=self.monitor_address,
                 metrics_period_s=2.0,
                 log=LogConfig(file=self._path("meta.log"))))
             self.meta_address = await self._wait_port("meta")
+
+    def _kv_config(self, i: int, listen_port: int = 0):
+        from t3fs_torch.app.kv_main import KvMainConfig
+        return KvMainConfig(
+            node_id=200 + i, kv=self._kv_spec(f"kv{i}"),
+            listen_port=listen_port,
+            port_file=self._path(f"kv{i}.port"),
+            monitor_address=self.monitor_address,
+            metrics_period_s=2.0,
+            log=LogConfig(file=self._path(f"kv{i}.log")))
+
+    def _spawn_kv(self, i: int, cfg) -> subprocess.Popen:
+        # the KV holds no chunk and runs no kernel: with no GPU visible it
+        # cannot open a CUDA context by accident
+        return self._spawn(f"kv{i}", "t3fs_torch.app.kv_main", cfg,
+                           env={"CUDA_VISIBLE_DEVICES": ""})
+
+    async def restart_kv_node(self, i: int) -> str:
+        """Respawn kv{i} (1-based) over its WAL on the port it first bound,
+        so meta's shard map still names it; returns its address once it
+        answers Kv.status.  The caller kills it first (kill_node)."""
+        port = int(self.kv_addresses[i - 1].rsplit(":", 1)[1])
+        port_path = self._path(f"kv{i}.port")
+        if os.path.exists(port_path):
+            os.unlink(port_path)
+        self._spawn_kv(i, self._kv_config(i, listen_port=port))
+        return await self._wait_port(f"kv{i}", probe="Kv.status")
 
     def start_storage_node(self, node_id: int) -> None:
         name = f"storage{node_id}"
@@ -300,6 +363,7 @@ async def _main(args) -> None:
     cluster = DevCluster(args.run_dir, num_storage=args.nodes,
                          replicas=args.replicas, num_chains=args.chains,
                          with_meta=True, with_monitor=args.monitor,
+                         kv_shards=args.kv_shards,
                          checksum_backend=args.checksum_backend)
     await cluster.start()
     print(f"cluster up: mgmtd={cluster.mgmtd_address} "
@@ -320,6 +384,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--replicas", type=int, default=3)
     ap.add_argument("--chains", type=int, default=2)
     ap.add_argument("--monitor", action="store_true")
+    ap.add_argument("--kv-shards", type=int, default=0,
+                    help=">0: run meta over a range-sharded KV deployment "
+                         "of this many kv_main processes (2PC across "
+                         "shard groups)")
     ap.add_argument("--checksum-backend", default="cuda",
                     help="every storage node's checksum backend: cuda (B1 "
                          "on the card) or cpu (the host CRC)")

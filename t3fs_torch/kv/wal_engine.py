@@ -18,9 +18,8 @@ commits are applied prefix-wise, like RocksDB WriteBatch recovery
 
 The port of t3fs/kv/wal_engine.py (host code; no device work): the same
 frames, so either package opens the other's directory.  open_kv_engine
-takes "mem" and "wal:"; the replicated and range-sharded deployments
-("remote:", "shards:") need kv/{service,remote,shard}, not ported yet
-(ROADMAP A12g), and raise NotImplementedError.
+takes "mem", "wal:", and the replicated and range-sharded deployments
+("remote:", "shards:") over kv/{service,remote,shard}.
 """
 
 from __future__ import annotations
@@ -595,17 +594,39 @@ def open_kv_engine(spec: str) -> KVEngine:
                                   rate_mbps caps WAL append bandwidth
                                   (a per-volume budget: appends queue
                                   behind the token bucket)
-      "remote:..." / "shards:..." the replicated and range-sharded
-                                  KvService deployments: not ported,
-                                  NotImplementedError
+      "remote:host:p,host:p"      replicated KvService deployment
+                                  (CustomKvEngine cluster_endpoints analog)
+      "shards:a:p,a:p;<hexkey>;a:p,..."
+                                  range-sharded deployment: ';'-separated
+                                  alternation of address groups and hex
+                                  split keys, e.g.
+                                  "shards:h1:1,h2:1;494e4f44;h3:1"
+                                  = group1 [b'' .. b'INOD'), group2 rest
     """
     if spec == "mem":
         return MemKVEngine()
-    if spec.startswith(("shards:", "remote:")):
-        raise NotImplementedError(
-            f"kv engine spec {spec.split(':', 1)[0]!r}: the replicated and "
-            "range-sharded KV (kv/{service,remote,shard}) are not ported yet "
-            "(ROADMAP A12g)")
+    if spec.startswith("shards:"):
+        from t3fs_torch.kv.shard import (
+            KEY_MAX, ShardMap, ShardRange, ShardedKVEngine,
+        )
+        parts = spec[len("shards:"):].split(";")
+        if len(parts) % 2 != 1:
+            raise ValueError(
+                "shards spec must alternate group;splitkey;group;...")
+        groups = [p.split(",") for p in parts[0::2]]
+        splits = [bytes.fromhex(p) for p in parts[1::2]]
+        bounds = [b""] + splits + [KEY_MAX]
+        # the FIRST group doubles as the map home: when surgery has
+        # published a versioned map there, clients converge to it (the
+        # spec's static layout is just the bootstrap routing)
+        return ShardedKVEngine(ShardMap(ranges=[
+            ShardRange(begin=bounds[i], end=bounds[i + 1],
+                       addresses=groups[i])
+            for i in range(len(groups))]),
+            map_home=groups[0])
+    if spec.startswith("remote:"):
+        from t3fs_torch.kv.remote import RemoteKVEngine
+        return RemoteKVEngine(spec[len("remote:"):].split(","))
     if spec.startswith("wal:"):
         rest = spec[4:]
         sync = "always"

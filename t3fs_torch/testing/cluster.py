@@ -11,8 +11,9 @@ factory called once per node start, e.g. a CudaChecksumBackend on
 device="cpu"), and with with_meta a MetaServer on the same KV (its GC and
 session pruning run as tasks in this event loop), and with with_monitor a
 MonitorCollectorServer, a process-wide reporter and mgmtd's health puller.
-Every node runs in this one process.  The sharded KV is not ported:
-kv_shards and with_kv_distributor raise NotImplementedError.
+Every node runs in this one process.  With kv_shards the meta plane runs
+over a range-sharded KV of that many KvService groups (with
+with_kv_distributor, a KVDistributor over them).
 """
 
 from __future__ import annotations
@@ -51,14 +52,8 @@ class LocalCluster:
                  seed_read_priors: bool = True,
                  kv_shards: int = 0,
                  with_kv_distributor: bool = False,
+                 kv_distributor_cfg: dict | None = None,
                  checksum_backend="cuda"):
-        unported = [name for name, on in (
-            ("kv_shards", kv_shards),
-            ("with_kv_distributor", with_kv_distributor)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"LocalCluster({', '.join(unported)}): the sharded KV is not "
-                "ported yet (ROADMAP A12g)")
         self.num_nodes = num_nodes
         self.replicas = replicas
         self.num_chains = num_chains
@@ -81,6 +76,18 @@ class LocalCluster:
         # soak harness) that configured it before building the cluster.
         self.trace = trace
         self.seed_read_priors = seed_read_priors
+        # kv_shards > 0 runs the meta plane over a range-sharded
+        # KV deployment (N single-node KvService groups + versioned
+        # ShardMap) instead of the shared local MemKVEngine — the FDB
+        # analog the distributor operates on.  mgmtd stays on self.kv:
+        # its chain state is not what the distributor balances.
+        self.kv_shards = kv_shards
+        self.with_kv_distributor = with_kv_distributor
+        self.kv_distributor_cfg = kv_distributor_cfg
+        self.kv_groups: list[tuple[object, Server]] = []
+        self.kv_admin = None            # ShardAdmin over the map home
+        self.kv_engine = None           # ShardedKVEngine backing meta
+        self.kv_dist = None             # KVDistributor (opt-in)
         # every StorageServer's checksum backend: a name or a factory
         self.checksum_backend = checksum_backend
         self.with_meta = with_meta
@@ -190,13 +197,62 @@ class LocalCluster:
             config=StorageClientConfig(retry_backoff_s=0.05, max_retries=12),
             refresh_routing=self.mgmtd_client.refresh)
 
+        if self.kv_shards:
+            await self._start_kv_shards()
+            if self.with_kv_distributor:
+                from t3fs_torch.kv.distributor import KVDistributor
+                cfg = dict(self.kv_distributor_cfg or {})
+                cfg.setdefault("known_groups",
+                               [[srv.address] for _, srv in self.kv_groups])
+                self.kv_dist = KVDistributor(
+                    [self.kv_groups[0][1].address], client=self.admin, **cfg)
+                await self.kv_dist.start()
+
         if self.with_meta:
             await self._start_meta()
 
+    async def _start_kv_shards(self) -> None:
+        """Bring up (or re-adopt) the sharded KV meta store: N single-node
+        KvService groups, a published ShardMap (all user keyspace on group
+        0 until the distributor says otherwise), and — ALWAYS — surgery
+        orphan healing: a mover that crashed mid-copy leaves its range
+        frozen or half-owned, and cluster bring-up must finish that
+        surgery without operator action.  Idempotent:
+        on a meta-plane restart the still-running groups are re-adopted,
+        only the map view and admin handle are rebuilt."""
+        from t3fs_torch.kv.service import KvService
+        from t3fs_torch.kv.shard import KEY_MAX, ShardMap, ShardRange, \
+            ShardedKVEngine
+        from t3fs_torch.kv.surgery import ShardAdmin
+        from t3fs_torch.utils.status import StatusError
+        for i in range(len(self.kv_groups), self.kv_shards):
+            svc = KvService(MemKVEngine(), client=self.admin,
+                            prepare_timeout_s=5.0)
+            srv = Server()
+            srv.add_service(svc)
+            await srv.start()
+            svc.export_load_gauges(group=f"g{i}")
+            self.kv_groups.append((svc, srv))
+        addrs = [[srv.address] for _, srv in self.kv_groups]
+        self.kv_admin = ShardAdmin(addrs[0], client=self.admin)
+        try:
+            m = await self.kv_admin.load_map()
+        except StatusError:
+            m = ShardMap(ranges=[ShardRange(b"", KEY_MAX, addrs[0])],
+                         version=1)
+            await self.kv_admin.publish_map(m)
+        healed = await self.kv_admin.resume()
+        if healed is not None:
+            m = healed
+        self.kv_engine = ShardedKVEngine(m, client=self.admin,
+                                         map_home=addrs[0])
+
     async def _start_meta(self) -> None:
         # stateless meta service on the same transactional KV as mgmtd
-        # (the reference shares one FoundationDB, docs/design_notes.md:7)
-        store = MetaStore(self.kv, ChainAllocator(
+        # (the reference shares one FoundationDB, docs/design_notes.md:7);
+        # with kv_shards, meta runs over the sharded deployment instead
+        backing = self.kv_engine if self.kv_shards else self.kv
+        store = MetaStore(backing, ChainAllocator(
             self.mgmtd_client.routing, default_chunk_size=4096))
         self.meta = MetaServer(store, self.sc, gc_period_s=0.1)
         self.meta_rpc = Server()
@@ -205,6 +261,30 @@ class LocalCluster:
         await self.meta_rpc.start()
         await self.meta.start()
         self.mc = MetaClient([self.meta_rpc.address])
+
+    async def restart_meta_plane(self) -> None:
+        """Crash + restart of the meta plane (meta server, distributor,
+        sharded-engine view) over the SAME still-running KV groups — the
+        groups are 'the database' and survive, like self.kv does across
+        restart_mgmtd.  Bring-up re-runs surgery orphan healing, so a
+        mover killed mid-copy before the restart is finished here."""
+        assert self.kv_shards, "restart_meta_plane needs kv_shards > 0"
+        if self.mc:
+            await self.mc.close_conn()
+            self.mc = None
+        if self.meta:
+            await self.meta.stop()
+            self.meta = None
+        if self.meta_rpc:
+            await self.meta_rpc.stop()
+            self.meta_rpc = None
+        if self.kv_dist:
+            await self.kv_dist.stop()
+        await self._start_kv_shards()
+        if self.with_meta:
+            await self._start_meta()
+        if self.kv_dist:
+            await self.kv_dist.start()
 
     async def start_storage_node(self, node_id: int,
                                  with_targets: bool = True) -> StorageServer:
@@ -382,6 +462,12 @@ class LocalCluster:
             await self.meta.stop()
         if self.meta_rpc:
             await self.meta_rpc.stop()
+        if self.kv_dist:
+            await self.kv_dist.stop()
+            self.kv_dist = None
+        for _svc, srv in self.kv_groups:
+            await srv.stop()
+        self.kv_groups.clear()
         if self.sc:
             await self.sc.close()
         if self.mgmtd_client:

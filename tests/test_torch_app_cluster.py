@@ -5,8 +5,10 @@ the CPU (the port's storage processes on the host checksum backend), the
 same seeded file written through FileSystem in each giving equal stored
 bytes and ChunkMeta, each package's clients against the other's cluster,
 the TOML each DevCluster writes, the two-phase config fetch, the
-placement solver, and the refusals: DevCluster(kv_shards=1), and a storage
-process asked for the CUDA backend where no GPU is present.
+placement solver, meta over two kv_main shard processes
+(DevCluster(kv_shards=2)), and the refusals: DevCluster past one shard a
+KeyPrefix, and a storage process asked for the CUDA backend where no GPU
+is present.
 
 Every test that drives the clusters bounds its own wall time
 (asyncio.wait_for), and the clusters are started once for the module.
@@ -288,8 +290,59 @@ def test_storage_process_without_gpu_fails_at_startup(clusters):
 
 
 def test_dev_cluster_refuses_kv_shards(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_dc.DevCluster(str(tmp_path), kv_shards=1)
+    """More shards than KeyPrefix split points: the reference's
+    ValueError, raised before any process is spawned."""
+    from t3fs_torch.kv.prefixes import KeyPrefix
+
+    c = port_dc.DevCluster(str(tmp_path), kv_shards=len(KeyPrefix) + 1,
+                           checksum_backend="cpu")
+    with pytest.raises(ValueError, match="KeyPrefix split points"):
+        asyncio.run(c.start())
+    assert c.procs == {}
+
+
+def test_meta_over_sharded_kv_multiprocess(tmp_path):
+    """meta_main over TWO standalone kv_main shard processes (a shards:
+    spec split at the KeyPrefix boundaries), driven through MetaClient
+    over real sockets: mkdirs, create, stat, rename and readdir are
+    cross-process cross-shard 2PC, and both kv_main processes hold rows."""
+    from t3fs_torch.kv.service import KvRangeReq
+
+    c = port_dc.DevCluster(str(tmp_path / "run"), num_storage=1, replicas=1,
+                           num_chains=1, durable=True, kv_shards=2,
+                           chunk_size=CHUNK,
+                           heartbeat_timeout_s=HEARTBEAT_TIMEOUT_S,
+                           checksum_backend="cpu")
+
+    async def body():
+        try:
+            await asyncio.wait_for(c.start(), START_TIMEOUT_S)
+            assert len(c.kv_addresses) == 2
+            toml = open(os.path.join(c.run_dir, "meta.toml")).read()
+            assert 'kv = "shards:' in toml
+            mc = port_mc.MetaClient([c.meta_address])
+            try:
+                await mc.mkdirs("/shard/deep", recursive=True)
+                inode, sess = await mc.create("/shard/deep/f",
+                                              chunk_size=CHUNK)
+                await mc.close(inode.inode_id, sess, length=0)
+                got = await mc.stat("/shard/deep/f")
+                assert got.inode_id == inode.inode_id
+                await mc.rename("/shard/deep/f", "/shard/g")
+                names = [e.name for e in await mc.readdir("/shard")]
+                assert sorted(names) == ["deep", "g"]
+            finally:
+                await mc.close_conn()
+            counts = []
+            for addr in c.kv_addresses:
+                rsp, _ = await c.admin.call(addr, "Kv.read_range", KvRangeReq(
+                    begin=b"", end=b"\xff" * 17))
+                counts.append(len(rsp.keys))
+            assert all(n > 0 for n in counts), counts
+        finally:
+            await c.stop()
+
+    _run(body())
 
 
 def test_storage_main_counters_line(tmp_path):
@@ -304,6 +357,20 @@ def test_storage_main_counters_line(tmp_path):
         '{"node_id": 1, "batches": 5, "batched_items": 9}\n')
     assert read_codec_counters(str(log)) == {
         "node_id": 1, "batches": 5, "batched_items": 9}
+
+
+def test_kv_main_recovery_line(tmp_path):
+    from t3fs_torch.app.kv_main import RECOVER_LOG_TAG, read_recovered
+
+    log = tmp_path / "kv2.log"
+    log.write_text(
+        f"2026 I [kv] t3fs_torch.app: {RECOVER_LOG_TAG} "
+        '{"recovered": 0, "resolved": 0}\n'
+        "noise\n"
+        f"2026 I [kv] t3fs_torch.app: {RECOVER_LOG_TAG} "
+        '{"recovered": 2, "resolved": 2}\n')
+    assert read_recovered(str(log)) == [{"recovered": 0, "resolved": 0},
+                                        {"recovered": 2, "resolved": 2}]
 
 
 # -------------------------------------------------------------- placement

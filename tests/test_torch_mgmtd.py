@@ -374,13 +374,18 @@ def test_mgmtd_refuses_the_unported_health_puller():
 
 
 @pytest.mark.parametrize("knob", [{"with_meta": True}, {"with_monitor": True},
-                                  {"kv_shards": 2},
-                                  {"with_kv_distributor": True}])
+                                  {"with_meta": True, "kv_shards": 2},
+                                  {"with_meta": True, "kv_shards": 2,
+                                   "with_kv_distributor": True}])
 def test_local_cluster_refuses_unported_branches(knob):
-    """The sharded KV is not ported: asking for it raises.  The meta
-    service is: with_meta starts a MetaServer on its own RPC server, and
-    the cluster's MetaClient reaches it.  So is the monitor: with_monitor
+    """Every branch of LocalCluster is ported and none refuses: with_meta
+    starts a MetaServer on its own RPC server, and the cluster's MetaClient
+    reaches it; with kv_shards that MetaServer runs over a ShardedKVEngine
+    of that many KvService groups (the map published on the first); with
+    with_kv_distributor a KVDistributor runs over them.  with_monitor
     starts a MonitorCollectorServer and points mgmtd's puller at it."""
+    from t3fs_torch.kv.distributor import KVDistributor
+    from t3fs_torch.kv.shard import ShardedKVEngine
     from t3fs_torch.meta.service import MetaServer
     from t3fs_torch.monitor.service import MonitorCollectorServer
     from t3fs_torch.testing.cluster import LocalCluster
@@ -403,20 +408,25 @@ def test_local_cluster_refuses_unported_branches(knob):
             assert c.monitor is None
         asyncio.run(monitored())
         return
-    if "with_meta" not in knob:
-        with pytest.raises(NotImplementedError, match="A12g"):
-            LocalCluster(**knob)
-        return
 
     async def body():
         c = LocalCluster(num_nodes=1, replicas=1, checksum_backend="cpu",
-                         **knob)
+                         heartbeat_timeout_s=60.0, **knob)
         await c.start()
         try:
             assert isinstance(c.meta, MetaServer)
             assert c.mc.addresses == [c.meta_rpc.address]
             assert (await c.mc.mkdirs("/d")).inode_id > 1
             assert [e.name for e in await c.mc.readdir("/")] == ["d"]
+            if "kv_shards" in knob:
+                assert isinstance(c.kv_engine, ShardedKVEngine)
+                assert len(c.kv_groups) == 2
+                assert (await c.kv_admin.load_map()).version == 1
+                # the whole keyspace starts on the map home
+                assert c.kv_groups[0][0].engine.current_version() > 0
+            assert isinstance(c.kv_dist, KVDistributor) == \
+                ("with_kv_distributor" in knob)
         finally:
             await c.stop()
+        assert c.kv_groups == [] and c.kv_dist is None
     asyncio.run(body())

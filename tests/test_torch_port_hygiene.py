@@ -40,7 +40,9 @@ for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worke
             "app.dev_cluster", "kv.wal_engine", "mgmtd.placement",
             "monitor.service", "monitor.rollup", "monitor.reporter",
             "monitor.clickhouse", "analytics.trace_log",
-            "analytics.trace_query", "utils.mem"):
+            "analytics.trace_query", "utils.mem", "kv.service", "kv.remote",
+            "kv.shard", "kv.surgery", "kv.distributor", "app.kv_main",
+            "benchmarks.meta_bench", "benchmarks.kv_distributor_bench"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -317,24 +319,21 @@ def test_baseline_harness_cli_fails_without_gpu(name, argv):
 
 
 def test_port_refuses_what_it_has_not_ported():
-    """What the port has not ported raises, never runs something else: the
-    sharded KV of LocalCluster and DevCluster, and open_kv_engine's
-    replicated and sharded specs.  The ring data plane is ported: asking
-    for it builds a client on that plane."""
-    from t3fs_torch.app.dev_cluster import DevCluster
+    """What the port has not ported raises, never runs something else:
+    meta_bench's kernel-mount mode needs fuse/kernel.py.  The ring data
+    plane is ported: asking for it builds a client on that plane.  (The
+    replicated and sharded KV are ported too: tests/test_torch_wal_kv.py
+    opens open_kv_engine's "remote:" and "shards:" specs, and
+    tests/test_torch_mgmtd.py and tests/test_torch_app_cluster.py start
+    LocalCluster and DevCluster over them.)"""
+    import asyncio
+
+    from t3fs_torch.benchmarks import meta_bench
     from t3fs_torch.client.storage_client import (
         StorageClient, StorageClientConfig)
-    from t3fs_torch.kv.wal_engine import open_kv_engine
-    from t3fs_torch.testing.cluster import LocalCluster
 
-    for kw in ({"kv_shards": 2}, {"with_kv_distributor": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            LocalCluster(checksum_backend="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DevCluster("unused", kv_shards=2)
-    for spec in ("remote:127.0.0.1:1", "shards:127.0.0.1:1"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            open_kv_engine(spec)
+    with pytest.raises(NotImplementedError, match="A12g"):
+        asyncio.run(meta_bench.run_bench(meta_bench.parse_args(["--fuse"])))
     sc = StorageClient(lambda: None,
                        config=StorageClientConfig(data_plane="ring"))
     assert sc.cfg.data_plane == "ring" and sc._ring_state == {
@@ -353,9 +352,11 @@ def _imported_modules(out_path: Path) -> set[str]:
 
 def test_spawned_mains_import_no_jax_and_no_t3fs(tmp_path, monkeypatch):
     """Every *_main child the port's DevCluster spawns (monitor, mgmtd,
-    storage, meta), run through a file write and a clean stop, imports
-    neither jax nor the JAX package: each child reports its imports
-    (PYTHONPROFILEIMPORTTIME) into its <name>.out."""
+    storage, the two kv_main shards, and meta over them), run through a
+    file write and a clean stop, imports neither jax nor the JAX package:
+    each child reports its imports (PYTHONPROFILEIMPORTTIME) into its
+    <name>.out.  The kv_main children run with no GPU visible, so they
+    cannot open a CUDA context."""
     import asyncio
 
     from t3fs_torch.app.dev_cluster import DevCluster
@@ -368,12 +369,16 @@ def test_spawned_mains_import_no_jax_and_no_t3fs(tmp_path, monkeypatch):
     monkeypatch.delenv("PYTHONPATH", raising=False)
     c = DevCluster(str(tmp_path / "run"), num_storage=1, replicas=1,
                    with_monitor=True, chunk_size=64 << 10,
-                   heartbeat_timeout_s=60.0, checksum_backend="cpu")
+                   heartbeat_timeout_s=60.0, checksum_backend="cpu",
+                   kv_shards=2)
 
     async def body():
         try:
             await asyncio.wait_for(c.start(), 240)
             names = sorted(c.procs)
+            for kv in ("kv1", "kv2"):
+                env = Path(f"/proc/{c.procs[kv].pid}/environ").read_bytes()
+                assert b"\0CUDA_VISIBLE_DEVICES=\0" in b"\0" + env, kv
             mgmtd = MgmtdClient(c.mgmtd_address)
             await mgmtd.start()
             sc = StorageClient(mgmtd.routing, refresh_routing=mgmtd.refresh)
@@ -391,7 +396,7 @@ def test_spawned_mains_import_no_jax_and_no_t3fs(tmp_path, monkeypatch):
             await c.stop()
 
     names = asyncio.run(asyncio.wait_for(body(), 300))
-    assert names == ["meta", "mgmtd", "monitor", "storage1"]
+    assert names == ["kv1", "kv2", "meta", "mgmtd", "monitor", "storage1"]
     for name in names:
         mods = _imported_modules(tmp_path / "run" / f"{name}.out")
         # the *_main module itself runs as __main__; every one imports base

@@ -4,8 +4,9 @@ each package's WalKVEngine (sets, clears, range clears, a window of
 pipelined commits met by one group fsync, a compaction at its threshold, a
 reopen and the WAL rate cap) gives byte-equal WAL and snapshot files, each
 package opens the other's directory and reads the same keys and versions,
-and open_kv_engine takes the same specs, refusing the deployments the port
-has not ported.  The rate cap's clock is pinned in both packages to the
+and open_kv_engine takes the same specs, the replicated ("remote:") and
+range-sharded ("shards:") deployments included, opened against live
+KvService groups.  The rate cap's clock is pinned in both packages to the
 same fake monotonic clock with monkeypatch; nothing in either package
 changes for it."""
 
@@ -205,7 +206,47 @@ def test_open_kv_engine_specs(tmp_path):
         kv.close()
         with pytest.raises(ValueError):
             wal.open_kv_engine("fdb:nope")
-    for spec in ("remote:127.0.0.1:1,127.0.0.1:2",
-                 "shards:127.0.0.1:1;494e4f44;127.0.0.1:2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            port_wal.open_kv_engine(spec)
+    from t3fs_torch.kv.remote import RemoteKVEngine
+    from t3fs_torch.kv.service import KvService
+    from t3fs_torch.kv.shard import ShardedKVEngine
+    from t3fs_torch.net.server import Server
+
+    async def live():
+        groups = []
+        for _ in range(2):
+            svc = KvService(port_engine.MemKVEngine())
+            srv = Server()
+            srv.add_service(svc)
+            await srv.start()
+            groups.append((svc, srv))
+        a0, a1 = (srv.address for _, srv in groups)
+        specs = (f"remote:{a0}", f"shards:{a0};494e4f44;{a1}")
+        try:
+            remote, sharded = (port_wal.open_kv_engine(s) for s in specs)
+            assert isinstance(remote, RemoteKVEngine)
+            assert remote.addresses == [a0]
+            assert isinstance(sharded, ShardedKVEngine)
+            layout = [(r.begin, r.end, r.addresses)
+                      for r in sharded.map.ranges]
+            ref = ref_wal.open_kv_engine(specs[1])
+            assert layout == [(r.begin, r.end, r.addresses)
+                              for r in ref.map.ranges]
+            assert layout[0][1] == b"INOD" and sharded.map_home == [a0]
+
+            async def put(txn):
+                txn.set(b"DENT/a", b"1")
+                txn.set(b"INOD/a", b"2")        # one key a shard: 2PC
+            await port_engine.with_transaction(sharded, put)
+            got = []
+            for kv in (remote, sharded):
+                async def get(txn):
+                    return [await txn.get(b"DENT/a"),
+                            await txn.get(b"INOD/a")]
+                got.append(await port_engine.with_transaction(kv, get))
+                await kv.close()
+            assert got == [[b"1", None], [b"1", b"2"]]
+            assert [svc.seq > 0 for svc, _ in groups] == [True, True]
+        finally:
+            for _, srv in groups:
+                await srv.stop()
+    asyncio.run(live())
