@@ -3,6 +3,7 @@
 every kernel.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --rebalance-drill RUNS
 
 Phases (any failure exits non-zero; nothing is caught into "ok"):
   0  report the card; build the kernels from t3fs_torch/csrc (into the
@@ -148,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      rename across directories, readdir, unlink, until meta's GC has
      removed every chunk from every replica.  Then t3fs_torch/ckpt at
      ckpt_bench's code and admission (RS(8+2), 256 KiB shards, window 8,
-     per-chain 2) over a seeded 1 GiB tree (16 leaves of 64 MiB, uint8,
+     per-chain 2) over a seeded 512 MiB tree (8 leaves of 64 MiB, uint8,
      float32 and int64; leaves of 4096 B, 1 000 003 B and 3 MiB + 17 B
      and an int64 scalar: partial stripes, trimmed tails): save (every
      stripe one fused encode-and-CRC call on a cuda-* route, the host CRC
@@ -157,8 +158,10 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      fail-stopped (two EC chains, RAID-6's limit) and a degraded restore
      (B3 + B1), the node back on an empty disk and scrub(repair=True)
      until clean, every stored shard against the leaves, the plain encode,
-     the native host CRC and plain B1, then a second step and
-     gc(keep_last=1) with none of step 1's chunks left; prints the walls
+     the native host CRC and plain B1, then a second step (2 leaves of
+     64 MiB) and gc(keep_last=1) with none of step 1's chunks left (the
+     counts of leaves cut from 16 and 4 to win back time under the run's
+     limit); prints the walls
      and MB/s of logical bytes, the manifest commit, codec flushes and
      stripes a flush, each node's B1 batches and the launches.  Then
      `t3fs_torch.benchmarks.ckpt_bench --runs 1 --kill --json` in this
@@ -251,7 +254,39 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      bounds; last, each storage process's B1 batches, items and launches as
      it logged them at its stop (each > 0), the launches added to the
      kernels line
- 15  the kernels line, the card line, then the ok line last
+ 29  meta over the replicated and range-sharded KV: DevCluster(kv_shards=2)
+     (phase 28's storage layout on B1, meta over two kv_main processes each
+     on its own WAL), meta_bench --mgmtd at 2048 files, a 64 MiB file, kv2
+     SIGKILLed amid create streams and respawned over its WAL, every
+     acknowledged create stat, then kv_distributor_bench --smoke while the
+     phase has time left; the storage processes' B1 launches from their logs
+ 30  only with --rebalance-drill RUNS, which runs phase 0 and then this
+     phase RUNS times in turn, each run's checks all made, and exits 0
+     only if every run passed every check; the default run leaves it out,
+     since its fifth gate held in about half the drills on the card at
+     this configuration.  Elastic membership under live traffic: the
+     reference's rebalance drill
+     (t3fs_torch/benchmarks/rebalance_drill_bench.run_bench, both cells) in
+     this process's loop at its cluster (3 nodes, 2 replicas, 6 CR and 4
+     RS(2+1) chains, 2 writers, 2 readers, heartbeat timeout 0.6 s) and
+     --smoke windows, with 1 MiB chunks and writes and a 32 MB/s move
+     budget, a CudaChecksumBackend a node: add an empty node, flap it
+     mid-move, drain an original node.  All five gates in both cells (zero
+     wrong bytes, zero foreground errors, the drill's read p50 within 1.3x
+     of the baseline's + 0.5 ms, paced within budget, converged); before
+     each cell's cluster stops, every chain's replicas equal in bytes and
+     ChunkMeta, each checksum the host CRC and plain B1 of its bytes, the
+     drained node holding no chain target and the added node its solver
+     share; every resync REPLACE a move's destination applied queued for
+     B1 on the device (counted per node), every codec route a cuda-* one;
+     then the drill cell once more under race_audit (every apply_update
+     audited, no race, its structural fields clean); prints both cells'
+     p50s and p99s, the jobs, bytes moved, the pacer, B1 batches and items
+     a node and each stall LoopStallDetector (0.1 s) saw on the timed
+     run's loop, with its frames
+ 15  each phase's wall, the kernels line, the card line, then the ok line
+     last (with --rebalance-drill, a line of each run's gates and ratio
+     instead)
 
 Every phase that drives TorchECCodec checks that no call took a plain
 route on the card.  Launch counts: the counters are set to 0 just before
@@ -263,8 +298,9 @@ pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups, each sort job and kvcache_bench run of phase 25 after
 its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
 its riders after their cluster's start and warmups, each run of phase 27's
-parts, 27d's before its microbench; phase 28's storage processes each
-start at 0 and log their count at their stop) and read just after; launches
+parts, 27d's before its microbench; phase 28's and 29's storage processes
+each start at 0 and log their count at their stop; phase 30's drill, both
+cells from their clusters' start) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -273,6 +309,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import contextvars
 import io
 import json
 import os
@@ -337,12 +374,13 @@ RECOVERY_WIPE_NODE = 4         # restarts on an empty disk
 RECOVERY_ROT_STRIPE = 5        # one shard of it bit-rotted on disk
 
 # phase 24: the file system and a parallel checkpoint (ckpt_bench's code
-# and admission), a 1 GiB tree: a cut of a real checkpoint's size
+# and admission), a 512 MiB tree: a cut of a real checkpoint's size (its
+# count of leaves, never their width, cut from 16 to keep the run short)
 CKPT_CHUNK = 256 << 10         # RS(8+2) shards of 256 KiB: 2 MiB stripes
-CKPT_BIG_LEAVES = 16           # leaves of CKPT_LEAF_BYTES
+CKPT_BIG_LEAVES = 8            # leaves of CKPT_LEAF_BYTES
 CKPT_LEAF_BYTES = 64 << 20
 CKPT_ODD_LEAVES = (4096, 1_000_003, (3 << 20) + 17)   # partial stripes, trimmed tails
-CKPT_STEP2_LEAVES = 4          # the second step: 4 leaves of CKPT_LEAF_BYTES
+CKPT_STEP2_LEAVES = 2          # the second step: 2 leaves of CKPT_LEAF_BYTES
 CKPT_READERS = 4               # restore_shard readers
 CKPT_NS_FILE = 256 << 20       # the namespace's file, CHUNK_BYTES chunks
 CKPT_WINDOW = 8                # stripes in flight (ckpt_bench's default)
@@ -431,6 +469,15 @@ SHARD_STREAM = 8            # creates in flight when kv2 dies
 SHARD_STREAM_ACKED = 32     # stream creates acknowledged before the kill
 SHARD_BUDGET_S = 150.0      # kv_distributor_bench runs only inside it
 SHARD_DIST_ARGS = ["--smoke"]
+# phase 30: elastic membership, the reference's rebalance drill at its cluster
+# (3 nodes, 2 replicas, 6 CR and 4 EC chains, RS(2+1), 2 writers, 2 readers)
+# and --smoke windows, with DevCluster's 1 MiB chunks and writes (the
+# reference's 8 KiB lies under the backend's 64 KiB device cutoff, so no
+# moved chunk would reach B1) and a 32 MB/s move budget; a stall is a loop
+# gap past STALL_THRESHOLD_S
+REBALANCE_ARGS = ["--smoke", "--chunk-size", "1048576", "--write-size", "1048576",
+                  "--budget-mbps", "32"]
+STALL_THRESHOLD_S = 0.1
 
 
 def log(msg: str) -> None:
@@ -4948,6 +4995,297 @@ def phase_sharded(dev: torch.device) -> dict:
     return res["launches"]
 
 
+# --- phase 30: elastic membership under live traffic --------------------------
+
+_replace_at = contextvars.ContextVar("replace_at", default=None)
+
+
+@contextlib.contextmanager
+def counted_sync_replaces(counts: dict):
+    """While the block runs, counts[node_id] = [the resync REPLACEs the node
+    applied, those whose payload CRC its backend queued for the device]:
+    the update handler marks its task with the node's backend, and the
+    CUDA backend's payload_crc counts a call from a task so marked."""
+    from t3fs_torch.storage.codec_backend import CudaChecksumBackend
+    from t3fs_torch.storage.service import StorageService
+    from t3fs_torch.storage.types import UpdateType
+
+    orig_update, orig_crc = StorageService._locked_update, CudaChecksumBackend.payload_crc
+
+    async def update(self, node, chain, target, io, *a, **kw):
+        if io.update_type != UpdateType.REPLACE or not io.is_sync:
+            return await orig_update(self, node, chain, target, io, *a, **kw)
+        counts.setdefault(node.node_id, [0, 0])[0] += 1
+        token = _replace_at.set((node.node_id, node.codec))
+        try:
+            return await orig_update(self, node, chain, target, io, *a, **kw)
+        finally:
+            _replace_at.reset(token)
+
+    async def payload_crc(self, data):
+        at = _replace_at.get()
+        if at is not None and at[1] is self and len(data) >= self.min_device_bytes:
+            counts[at[0]][1] += 1
+        return await orig_crc(self, data)
+
+    StorageService._locked_update, CudaChecksumBackend.payload_crc = update, payload_crc
+    try:
+        yield counts
+    finally:
+        StorageService._locked_update, CudaChecksumBackend.payload_crc = orig_update, orig_crc
+
+
+def check_rebalanced(cluster, nodes: int, dev: torch.device) -> dict:
+    """A drill cell's cluster just before it stops, read from each target's
+    engine: on every chain of mgmtd's routing, every replica holds the same
+    chunks with the same bytes and the same ChunkMeta (length, versions,
+    checksum, state; chain_ver is the chain's version at the write, newer
+    on a resynced replica), committed, its checksum the native host CRC
+    and plain B1 of its bytes.  In the drill cell (a node past `nodes`
+    joined), the drained node holds no chain target and the added node
+    holds exactly its solver share.  Runs in a thread: the cluster's loop
+    keeps its heartbeats."""
+    from t3fs_torch.mgmtd.chain_table import solve_for_routing
+    from t3fs_torch.mgmtd.types import NodeStatus
+    from t3fs_torch.ops.codec import crc32c
+    from t3fs_torch.storage.types import ChunkState
+
+    routing = cluster.mgmtd.state.routing()
+    chunks = replicas = 0
+    for cid, chain in sorted(routing.chains.items()):
+        held = []
+        for t in chain.targets:
+            engine = cluster_engine(cluster, t)
+            held.append({m.chunk_id: (m.length, m.update_ver, m.commit_ver, m.checksum,
+                                      m.state, engine.read(m.chunk_id))
+                         for m in engine.all_metas()})
+        expect(all(h == held[0] for h in held[1:]),
+               f"[30] chain {cid}: its replicas hold other chunks, bytes or metas")
+        rows = sorted(held[0].items(), key=lambda kv: (kv[0].inode, kv[0].index))
+        b1 = plain_crcs([row[5] for _, row in rows], dev)
+        for (chunk, (length, uver, cver, crc, state, data)), plain in zip(rows, b1):
+            expect(state == ChunkState.COMMIT and uver == cver and length == len(data)
+                   and crc == crc32c(data) == plain,
+                   f"[30] chain {cid} chunk {chunk}: meta {(length, uver, cver, crc, state)}"
+                   f", host CRC {crc32c(data):#x}, plain B1 {plain:#x}")
+        chunks += len(rows)
+        replicas += len(rows) * len(held)
+    out = {"chains": len(routing.chains), "chunks": chunks, "replica_chunks": replicas}
+    added = sorted(n for n in routing.nodes if n > nodes)
+    if added:
+        drained = [n for n, info in routing.nodes.items() if "drain" in (info.tags or ())]
+        expect(len(added) == 1 and len(drained) == 1,
+               f"[30] added nodes {added}, drained nodes {drained}")
+        on = {n: sum(1 for c in routing.chains.values()
+                     for t in c.targets if t.node_id == n) for n in routing.nodes}
+        expect(on[drained[0]] == 0,
+               f"[30] the drained node {drained[0]} holds {on[drained[0]]} chain targets")
+        cands = [info for n, info in sorted(routing.nodes.items())
+                 if n != drained[0] and info.status == NodeStatus.ACTIVE]
+        share = sum(added[0] in owners
+                    for tid in sorted(routing.chain_tables)
+                    for owners in solve_for_routing(routing, tid, cands).assignment.values())
+        expect(on[added[0]] == share > 0,
+               f"[30] the added node {added[0]} holds {on[added[0]]} chain targets, "
+               f"its solver share {share}")
+        out.update(added=added[0], drained=drained[0], share=share, targets_on=on)
+    return out
+
+
+async def phase_rebalance_drill(dev: torch.device, args: list[str]) -> dict:
+    """The drill (rebalance_drill_bench.run_bench, both cells) in this
+    process's loop under LoopStallDetector, each cell's cluster checked by
+    check_rebalanced before it stops; then the drill cell once more under
+    race_audit (a run apart: the auditor formats a stack on every
+    apply_update, which would weigh on the timed cells' loop)."""
+    from t3fs_torch.benchmarks import rebalance_drill_bench as rdb
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.migration.service import MigrationService
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.server import StorageServer
+    from t3fs_torch.testing.cluster import LocalCluster
+    from t3fs_torch.testing.race import LoopStallDetector, RaceError, race_audit
+    from t3fs_torch.testing.spies import checked_before_stop, spied
+
+    bargs = rdb.parse_args(args + (["--cpu"] if dev.type == "cpu" else []))
+    started, cells, jobs, races, codecs = [], [], [], [], []
+    b1_nodes: dict[int, dict] = {}     # cell -> node -> [B1 batches, items]
+    replaces: dict = {}
+
+    def server_stopped(ss) -> None:
+        counts = b1_nodes.setdefault(len(started) - 1, {}).setdefault(ss.node_id, [0, 0])
+        counts[0] += getattr(ss.node.codec, "batches", 0)
+        counts[1] += getattr(ss.node.codec, "batched_items", 0)
+
+    async def cluster_stopping(cluster) -> None:
+        cells.append(await asyncio.to_thread(check_rebalanced, cluster, bargs.nodes, dev))
+
+    with counted_sync_replaces(replaces), \
+            spied(LocalCluster, "start", started), spied(TorchECCodec, "close", codecs), \
+            checked_before_stop(StorageServer, server_stopped), \
+            checked_before_stop(LocalCluster, cluster_stopping), \
+            checked_before_stop(MigrationService, lambda m: jobs.extend(m.jobs.values())):
+        cc.reset_launches()
+        async with LoopStallDetector(threshold_s=STALL_THRESHOLD_S) as det:
+            t0 = time.perf_counter()
+            res = await rdb.run_bench(bargs)
+            wall = time.perf_counter() - t0
+        launches = dict(cc.launches)
+    with race_audit() as auditor:
+        enter = auditor.enter
+
+        def audited_enter(key, who="?"):
+            try:
+                enter(key, who)
+            except RaceError as e:
+                races.append(str(e).splitlines()[0])
+                raise
+        auditor.enter = audited_enter
+        t0 = time.perf_counter()
+        audited = await rdb.run_drill(bargs)
+        audit_wall = time.perf_counter() - t0
+    return {"res": res, "wall": wall, "launches": launches, "cells": cells,
+            "jobs": jobs, "b1_nodes": b1_nodes, "replaces": replaces,
+            "stalls": det.stalls, "races": races, "audited": auditor.entries,
+            "audited_drill": audited, "audit_wall": audit_wall,
+            "routes": [dict(c.codec_counts) for c in codecs]}
+
+
+def stall_frames(stack: str, depth: int = 8) -> str:
+    """Where a stall's loop thread was: its `depth` innermost frames,
+    innermost first, each as path:line in function (paths in this checkout
+    relative to it, others from site-packages on)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    frames = []
+    for ln in stack.splitlines():
+        ln = ln.strip()
+        if ln.startswith('File "'):
+            path, line, fn = ln[6:].split(", ", 2)
+            path = path.rstrip('"')
+            path = os.path.relpath(path, here) if path.startswith(here + os.sep) \
+                else path.split("site-packages/")[-1]
+            frames.append(f"{path}:{line[5:]} in {fn[3:]}")
+    return " < ".join(reversed(frames[-depth:])) or "<no frame>"
+
+
+def phase_rebalance(dev: torch.device, args: list[str] | None = None) -> dict:
+    """Phase 30 on `dev`: the reference's rebalance drill (add a node, flap
+    it mid-move, drain an original node) with the checks listed in the
+    module docstring; returns the drill's launches."""
+    from t3fs_torch.migration.service import JobState
+
+    out = asyncio.run(phase_rebalance_drill(dev, REBALANCE_ARGS if args is None else args))
+    res, cells, jobs = out["res"], out["cells"], out["jobs"]
+    base, drill = res["cells"]
+    for c in (base, drill):
+        log(f"[30] {c['name']}: read p50 {c['fg_read_p50_ms']} ms, p99 "
+            f"{c['fg_read_p99_ms']} ms, write p50 {c['fg_write_p50_ms']} ms; "
+            f"{c['fg_writes']} writes and {c['fg_reads']} reads in the window, "
+            f"{c['fg_errors']} errors, {c['wrong_bytes']} wrong")
+    done = [j for j in jobs if j.state == JobState.DONE.value]
+    failed = [j for j in jobs if j.state == JobState.FAILED.value]
+    moved = sum(j.bytes_moved for j in done)
+    log(f"[30] jobs: {len(jobs)} submitted, {len(done)} done, "
+        f"{sum(j.resumable for j in failed)} failed resumable and "
+        f"{sum(not j.resumable for j in failed)} not, {drill['jobs_resumed']} resumed, "
+        f"{sum(j.attempts for j in jobs)} drives; {moved} bytes moved "
+        f"({moved / 2**20:.1f} MiB), converged in {drill['converge_s']} s; moves "
+        f"{drill['moves_done']} of {drill['moves_total']} done")
+    log(f"[30] pacer: bytes_submitted {drill['bytes_submitted']}, allowance "
+        f"{drill['pacer_allowance_bytes']} (budget {res['budget_mbps']} MB/s x the "
+        f"drill + a burst of {int(res['budget_mbps'] * 1e6)}), waits "
+        f"{drill['paced_waits']} for {drill['paced_wait_s']} s")
+    log(f"[30] gates {res['gates']}; fg p50 ratio {res['fg_p50_ratio']}; the "
+        f"cells' codec routes {out['routes']}")
+    stalls = out["stalls"]
+    worst = max(stalls, key=lambda st: st.duration_s, default=None)
+    log(f"[30] LoopStallDetector (threshold {STALL_THRESHOLD_S} s) over the drill's "
+        f"loop: {len(stalls)} stalls" + (
+            f", worst {worst.duration_s:.3f} s in {stall_frames(worst.stack)}"
+            if worst else ""))
+    for st in stalls:
+        log(f"[30] stall {st.duration_s:.3f} s: {stall_frames(st.stack, 3)}")
+    expect(len(cells) == 2 and "added" not in cells[0] and "added" in cells[1],
+           f"[30] cells checked before their stop: {cells}")
+    c = cells[1]
+    log(f"[30] checks: {cells[0]['replica_chunks']} + {c['replica_chunks']} replica "
+        f"chunks of {cells[0]['chunks']} + {c['chunks']} chunks on every chain "
+        f"of both cells equal across replicas (bytes and ChunkMeta), committed, "
+        f"each checksum the host CRC and plain B1 of its bytes; node "
+        f"{c['drained']} drained (0 targets), node {c['added']} added with "
+        f"{c['targets_on'][c['added']]} chain targets, its solver share {c['share']}; "
+        f"targets a node {c['targets_on']}")
+    reps = out["replaces"]
+    log("[30] per node (B1 batches = launches, items; resync REPLACEs applied, of "
+        "them CRC'd on the device): " + "; ".join(
+            f"cell {i} " + ", ".join(
+                f"n{n} {b}, {it}" + (f"; {reps[n][0]}, {reps[n][1]}" if i and n in reps else "")
+                for n, (b, it) in sorted(nodes.items()))
+            for i, nodes in sorted(out["b1_nodes"].items())))
+    a = out["audited_drill"]
+    log(f"[30] race_audit over a second drill cell ({out['audit_wall']:.1f} s): "
+        f"{out['audited']} apply_update sections audited, {len(out['races'])} races; "
+        f"{a['fg_errors']} foreground errors, {a['wrong_bytes']} wrong, converged "
+        f"{a['converged']} in {a['converge_s']} s, node {a['drained_node']} left "
+        f"{a['drained_node_targets']} targets, read p50 {a['fg_read_p50_ms']} ms")
+    expect(out["audited"] > 0 and not out["races"], f"[30] race_audit: {out['races']}")
+    expect(a["fg_errors"] == a["wrong_bytes"] == a["drained_node_targets"]
+           == a["solver_diff_remaining"] == 0 and a["converged"]
+           and a["all_serving"] and a["no_duplicate_targets"],
+           f"[30] the audited drill cell: {a}")
+    expect(drill["bytes_submitted"] > 0 and moved > 0, "[30] the drill moved nothing")
+    if dev.type == "cuda":
+        from t3fs_torch.benchmarks.devbench import card_line
+
+        dests = {j.dst_node_id for j in done if j.bytes_moved}
+        expect(c["added"] in dests and all(
+            reps.get(n, [0, 0])[1] == reps.get(n, [0, 0])[0] > 0 for n in dests),
+            f"[30] a destination's resync REPLACEs did not all reach B1: "
+            f"destinations {sorted(dests)}, counts {reps}")
+        expect(out["launches"].get("crc_words", 0) > 0,
+               f"[30] the drill launched no B1: {out['launches']}")
+        expect(len(out["routes"]) == 2 and all(
+            r and all(k.startswith("cuda-") for k in r) for r in out["routes"]),
+            f"[30] a cell's codec took a plain route or none: {out['routes']}")
+        card = card_line()
+    else:
+        card = "cpu"
+    log(f"[30] phase: {out['wall']:.1f} s of the drill on {card}; launches {out['launches']}")
+    expect(res["verified"], f"[30] the drill missed a gate: {res['gates']}")
+    return out["launches"]
+
+
+def rebalance_runs(dev: torch.device, runs: int) -> int:
+    """`--rebalance-drill RUNS`: phase 30 `runs` times in turn, a run that
+    fails a check logged and the next one started; 0 only if every run
+    passed every check."""
+    from t3fs_torch.benchmarks import rebalance_drill_bench as rdb
+
+    results, orig = [], rdb.run_bench
+
+    async def run_bench(args):
+        results.append(await orig(args))
+        return results[-1]
+
+    failed = []
+    rdb.run_bench = run_bench
+    try:
+        for i in range(runs):
+            t0 = time.perf_counter()
+            try:
+                phase_rebalance(dev)
+            except AssertionError as e:
+                failed.append(i + 1)
+                log(f"[30] run {i + 1} of {runs} failed: {e}")
+            log(f"[30] run {i + 1} of {runs}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        rdb.run_bench = orig
+    log(json.dumps({"rebalance_drill": [
+        {"run": i + 1, "fg_p50_ratio": r["fg_p50_ratio"], "gates": r["gates"]}
+        for i, r in enumerate(results)], "failed_runs": failed}))
+    return 1 if failed else 0
+
+
 def host_warnings() -> None:
     """usrbio.cpp through the host compiler with -Wall -Wextra (syntax
     only): its includes stand on their own and it warns of nothing."""
@@ -4965,7 +5303,15 @@ def host_warnings() -> None:
     log(f"[0] usrbio.cpp under {version} with -Wall -Wextra: no warning")
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    drill_runs = 0
+    if argv:
+        if len(argv) != 2 or argv[0] != "--rebalance-drill" or not argv[1].isdigit() \
+                or int(argv[1]) < 1:
+            print("usage: chip_smoke.py [--rebalance-drill RUNS]", file=sys.stderr)
+            return 2
+        drill_runs = int(argv[1])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a GPU", file=sys.stderr)
@@ -4996,49 +5342,90 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"[0] nvcc {name}: {line.strip()}")
 
+    if drill_runs:
+        return rebalance_runs(dev, drill_runs)
+
+    walls: dict[int, float] = {}
+
+    @contextlib.contextmanager
+    def wall(phase: int):
+        t0 = time.perf_counter()
+        yield
+        walls[phase] = walls.get(phase, 0.0) + time.perf_counter() - t0
+        log(f"[{phase}] wall {walls[phase]:.1f} s")
+
     g = torch.Generator(device=dev)
     g.manual_seed(SEED)
-    e_crc = phase_crc(dev, g, CHUNK_BYTES // 4, CHUNKS, 4096)
-    e_rs, e_step_crc = phase_stripe(dev, g, SHARD_BYTES // 4, STRIPES)
-    main_runs = [asyncio.run(phase_storage(dev, storage_sizes(CHUNK_BYTES))),
-                 asyncio.run(phase_ec(dev, SHARD_BYTES, 24))]
-    times = phase_times(dev, g)
-    read_errs = phase_read_kernels(dev, g)
-    full = raid6_stripes(dev, g, LOST_CHUNKS)
-    crcs = plain_shard_crcs(full, dev)
-    main_runs.append(asyncio.run(phase_degraded(dev, full, crcs)))
-    main_runs.append(asyncio.run(phase_repair(dev, full, crcs)))
+    with wall(1):
+        e_crc = phase_crc(dev, g, CHUNK_BYTES // 4, CHUNKS, 4096)
+    with wall(2):
+        e_rs, e_step_crc = phase_stripe(dev, g, SHARD_BYTES // 4, STRIPES)
+    with wall(3):
+        main_runs = [asyncio.run(phase_storage(dev, storage_sizes(CHUNK_BYTES)))]
+    with wall(4):
+        main_runs.append(asyncio.run(phase_ec(dev, SHARD_BYTES, 24)))
+    with wall(5):
+        times = phase_times(dev, g)
+    with wall(6):
+        read_errs = phase_read_kernels(dev, g)
+    with wall(7):
+        full = raid6_stripes(dev, g, LOST_CHUNKS)
+        crcs = plain_shard_crcs(full, dev)
+        main_runs.append(asyncio.run(phase_degraded(dev, full, crcs)))
+    with wall(8):
+        main_runs.append(asyncio.run(phase_repair(dev, full, crcs)))
     del full
-    main_runs.append(asyncio.run(phase_nonraid6(dev, g)))
-    read_times = phase_read_times(dev, g)
-    e_bytes = phase_crc_bytes(dev, g)
-    main_runs.append(asyncio.run(phase_byte_routes(dev)))
-    main_runs.append(asyncio.run(phase_msr(dev)))
-    big_errs = phase_big_kernels(dev, g)
-    main_runs.append(asyncio.run(phase_big_codes(dev)))
-    byte_times = phase_byte_times(dev, g, times["crc_words"])
-    e_copy, copy_times, bench_launches = phase_bench(dev, g)
+    with wall(9):
+        main_runs.append(asyncio.run(phase_nonraid6(dev, g)))
+    with wall(10):
+        read_times = phase_read_times(dev, g)
+    with wall(11):
+        e_bytes = phase_crc_bytes(dev, g)
+    with wall(12):
+        main_runs.append(asyncio.run(phase_byte_routes(dev)))
+    with wall(13):
+        main_runs.append(asyncio.run(phase_msr(dev)))
+    with wall(17):
+        big_errs = phase_big_kernels(dev, g)
+        main_runs.append(asyncio.run(phase_big_codes(dev)))
+    with wall(14):
+        byte_times = phase_byte_times(dev, g, times["crc_words"])
+    with wall(16):
+        e_copy, copy_times, bench_launches = phase_bench(dev, g)
     main_runs.append(bench_launches)
-    phase_sort()
-    main_runs.append(phase_mesh(dev))
-    main_runs.append(phase_entry(dev))
-    for pipeline in ("off", "overlap"):
-        main_runs.append(asyncio.run(
-            phase_chain(dev, pipeline, CHAIN_FILE_BYTES, CHUNK_BYTES)))
-    chain_device_times(dev, CHUNK_BYTES)
-    main_runs.append(asyncio.run(phase_ec_stripes(dev)))
-    main_runs.append(asyncio.run(phase_recovery(dev)))
-    main_runs.append(asyncio.run(phase_ckpt(dev)))
-    phase_ckpt_bench()
-    t0 = time.perf_counter()
-    main_runs.append(asyncio.run(phase_graysort_kvcache(dev)))
-    phase_fleet()
-    log(f"[25] phase: {time.perf_counter() - t0:.1f} s")
-    main_runs.append(phase_usrbio(dev))
-    launches27, config2 = phase_harness(dev)
+    with wall(18):
+        phase_sort()
+    with wall(19):
+        main_runs.append(phase_mesh(dev))
+    with wall(20):
+        main_runs.append(phase_entry(dev))
+    with wall(21):
+        for pipeline in ("off", "overlap"):
+            main_runs.append(asyncio.run(
+                phase_chain(dev, pipeline, CHAIN_FILE_BYTES, CHUNK_BYTES)))
+        chain_device_times(dev, CHUNK_BYTES)
+    with wall(22):
+        main_runs.append(asyncio.run(phase_ec_stripes(dev)))
+    with wall(23):
+        main_runs.append(asyncio.run(phase_recovery(dev)))
+    with wall(24):
+        main_runs.append(asyncio.run(phase_ckpt(dev)))
+        phase_ckpt_bench()
+    with wall(25):
+        main_runs.append(asyncio.run(phase_graysort_kvcache(dev)))
+        phase_fleet()
+    with wall(26):
+        main_runs.append(phase_usrbio(dev))
+    with wall(27):
+        launches27, config2 = phase_harness(dev)
     main_runs.append(launches27)
-    main_runs.append(phase_deployment(dev, config2))
-    main_runs.append(phase_sharded(dev))
+    with wall(28):
+        main_runs.append(phase_deployment(dev, config2))
+    with wall(29):
+        main_runs.append(phase_sharded(dev))
+    log(f"[15] phase walls (s) on {card}: " + ", ".join(
+        f"{n} {w:.1f}" for n, w in sorted(walls.items()))
+        + f"; all phases {sum(walls.values()):.1f}")
 
     from t3fs_torch.benchmarks.devbench import launches as _bench_names
     from t3fs_torch.ops.cuda_codec import launches as _codec_names

@@ -35,6 +35,7 @@ from t3fs_torch.net.rpcstats import READ_STATS
 from t3fs_torch.storage.types import ChunkId, ReadIO
 from t3fs_torch.testing.cluster import LocalCluster
 from t3fs_torch.utils import tracing
+from t3fs_torch.utils.status import StatusCode
 from t3fs_torch.utils.tracing import TraceConfig
 
 BUCKET_S = 0.5
@@ -110,7 +111,10 @@ async def measure(checksum_backend="cuda") -> dict:
            "cleared_s": None, "clear_bound_s": clear_bound, "ok": False}
     try:
         cid = ChunkId(INODE, 0)
-        await cl.sc.write_chunk(1, cid, 0, b"\x5a" * 4096, 4096)
+        res = await cl.sc.write_chunk(1, cid, 0, b"\x5a" * 4096, 4096)
+        if res.status.code != int(StatusCode.OK):
+            raise RuntimeError(f"health_smoke: the seed write failed: "
+                               f"{res.status}")
         # healthy baseline first: straggler detection needs peers to
         # compare against, so let every node serve some reads
         await asyncio.sleep(2 * BUCKET_S)

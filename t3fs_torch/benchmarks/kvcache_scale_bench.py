@@ -184,7 +184,9 @@ async def _compaction_ab(fleet: _Fleet, assign: list, total: int,
     # ledgered (a DEL racing an unflushed put would lose to its newer
     # flush-time ts — the grace-window case, tested elsewhere)
     for key in churn[::3]:
-        await tier.store.remove_keys([key])
+        if not all(await tier.store.remove_keys([key])):
+            raise RuntimeError(f"kvcache_scale_bench: churn key {key!r} "
+                               f"was not removed")
         tier.ledger.append(2, key, ts=time.time())       # OP_DEL
     await tier.flush()
 

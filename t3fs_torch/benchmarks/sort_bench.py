@@ -67,6 +67,7 @@ from t3fs_torch.client.layout import FileLayout
 from t3fs_torch.client.storage_client import StorageClient
 from t3fs_torch.ops.device_sort import (
     KEY_LEN, REC_LEN, host_columns, lexsort_rows, make_device_sorter, sort_columns)
+from t3fs_torch.utils.status import StatusCode
 
 SEED = 2026
 QUICK_RECORDS = 1 << 22
@@ -136,6 +137,15 @@ def _partition_of(rows: np.ndarray, parts: int) -> np.ndarray:
     return (hi >> np.uint64(64 - parts.bit_length() + 1)).astype(np.int64)
 
 
+def check_writes(results, what: str) -> None:
+    """Raise when a chunk write of one write_file_range failed: a failed
+    write fails the job instead of passing as a short or stale file."""
+    bad = [r.status for r in results if r.status.code != int(StatusCode.OK)]
+    if bad:
+        raise RuntimeError(f"sort_bench: {len(bad)} {what} chunk writes "
+                           f"failed: {bad[0]}")
+
+
 def _check_pow2(n: int, what: str) -> None:
     if n < 1 or n & (n - 1):
         raise SystemExit(f"{what} must be a power of two, got {n}")
@@ -188,7 +198,8 @@ async def _run_job(args, sc: StorageClient, chains: list[int]) -> dict:
         rows = rng.integers(0, 256, (rec_per_worker, REC_LEN), dtype=np.uint8)
         in_sum ^= np.bitwise_xor.reduce(
             rows[:, 0:8].copy().view(">u8").ravel())
-        await sc.write_file_range(lay, IN_INODE + w, 0, rows.tobytes())
+        check_writes(await sc.write_file_range(lay, IN_INODE + w, 0,
+                                               rows.tobytes()), "input")
 
     t_job0 = time.perf_counter()
 
@@ -207,7 +218,8 @@ async def _run_job(args, sc: StorageClient, chains: list[int]) -> dict:
             if len(seg):
                 writes.append(sc.write_file_range(
                     lay, RUN_INODE + (w << 16 | part), 0, seg.tobytes()))
-        await asyncio.gather(*writes)
+        for res in await asyncio.gather(*writes):
+            check_writes(res, "run")
 
     await asyncio.gather(*(map_worker(w) for w in range(workers)))
     t_p1 = time.perf_counter()
@@ -229,7 +241,8 @@ async def _run_job(args, sc: StorageClient, chains: list[int]) -> dict:
             return 0, np.uint64(0)
         rows = np.concatenate(segs) if len(segs) > 1 else segs[0]
         rows = rows[sorter(rows)]
-        await sc.write_file_range(lay, OUT_INODE + part, 0, rows.tobytes())
+        check_writes(await sc.write_file_range(lay, OUT_INODE + part, 0,
+                                               rows.tobytes()), "output")
         return len(rows), np.bitwise_xor.reduce(
             rows[:, 0:8].copy().view(">u8").ravel())
 

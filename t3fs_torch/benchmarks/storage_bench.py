@@ -34,6 +34,7 @@ from t3fs_torch import resolve_device
 from t3fs_torch.client.storage_client import StorageClientConfig
 from t3fs_torch.storage.types import ChunkId
 from t3fs_torch.utils.metrics import LatencyRecorder
+from t3fs_torch.utils.status import StatusCode
 
 BENCH_INODE = 0xBE7C
 
@@ -67,9 +68,12 @@ async def run_bench(args) -> dict:
             i += args.concurrency
             try:
                 with lat.time():
-                    await sc.write_chunk(chain_id, cid, 0,
-                                         payloads[i % len(payloads)],
-                                         args.chunk_size)
+                    res = await sc.write_chunk(chain_id, cid, 0,
+                                               payloads[i % len(payloads)],
+                                               args.chunk_size)
+                if res.status.code != int(StatusCode.OK):
+                    counters["errors"] += 1
+                    continue
                 counters["ops"] += 1
                 counters["bytes"] += args.chunk_size
             except Exception:
@@ -92,9 +96,8 @@ async def run_bench(args) -> dict:
                         i += args.concurrency
                     with lat.time():
                         results, datas = await sc.batch_read(ios)
-                    from t3fs_torch.utils.status import StatusCode as _SC
                     ok = sum(1 for r in results
-                             if r.status.code == int(_SC.OK))
+                             if r.status.code == int(StatusCode.OK))
                     counters["ops"] += ok
                     counters["errors"] += len(ios) - ok
                     counters["bytes"] += sum(len(d) for d in datas)
@@ -119,10 +122,12 @@ async def run_bench(args) -> dict:
     # i % num_chunks); write mode just needs enough to warm the path
     n_pop = (args.num_chunks if args.mode in ("read", "mixed")
              else min(args.num_chunks, 2 * args.concurrency))
-    await asyncio.gather(*[
+    populated = await asyncio.gather(*[
         sc.write_chunk(chain_id, ChunkId(BENCH_INODE, i), 0,
                        payloads[i % len(payloads)], args.chunk_size)
         for i in range(n_pop)])
+    counters["errors"] += sum(r.status.code != int(StatusCode.OK)
+                              for r in populated)
 
     t0 = time.perf_counter()
     stop_at = t0 + args.seconds
@@ -179,17 +184,22 @@ def run_write_bench(value_size: int, num_ops: int, concurrency: int = 1,
         payloads = [os.urandom(value_size) for _ in range(4)]
         try:
             # warm the path (conn setup, first-chunk alloc) off the clock
-            await sc.write_chunk(fab.chain_id, ChunkId(BENCH_INODE, 0), 0,
-                                 payloads[0], value_size)
+            res = await sc.write_chunk(fab.chain_id, ChunkId(BENCH_INODE, 0),
+                                       0, payloads[0], value_size)
+            if res.status.code != int(StatusCode.OK):
+                counters["errors"] += 1
 
             async def worker(widx: int) -> None:
                 for i in range(widx, num_ops, concurrency):
                     cid = ChunkId(BENCH_INODE, 1 + i)
                     try:
                         with lat.time():
-                            await sc.write_chunk(
+                            res = await sc.write_chunk(
                                 fab.chain_id, cid, 0,
                                 payloads[i % len(payloads)], value_size)
+                        if res.status.code != int(StatusCode.OK):
+                            counters["errors"] += 1
+                            continue
                         counters["ok"] += 1
                     except Exception:
                         counters["errors"] += 1

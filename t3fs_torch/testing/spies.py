@@ -5,6 +5,7 @@ just before it stops."""
 from __future__ import annotations
 
 import contextlib
+import inspect
 
 
 @contextlib.contextmanager
@@ -26,12 +27,18 @@ def spied(cls, name: str, seen: list, result: bool = False):
 
 @contextlib.contextmanager
 def checked_before_stop(cls, check):
-    """cls.stop runs check(self) first while the block runs."""
+    """cls.stop runs check(self) first while the block runs (awaiting what
+    it returns, where that is awaitable); the object stops even where the
+    check raises."""
     orig = cls.stop
 
     async def stop(self):
-        check(self)
-        await orig(self)
+        try:
+            out = check(self)
+            if inspect.isawaitable(out):
+                await out
+        finally:
+            await orig(self)
     cls.stop = stop
     try:
         yield

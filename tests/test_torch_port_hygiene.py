@@ -29,7 +29,7 @@ print(len(mods), bad)
 assert not bad, bad
 for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
             "monitor", "core", "meta", "fuse", "ckpt", "lib", "usrbio",
-            "kvcache", "app", "analytics"):
+            "kvcache", "app", "analytics", "migration", "analysis"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worker",
             "benchmarks.usrbio_bench", "benchmarks.kvcache_scale_bench",
@@ -42,7 +42,11 @@ for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worke
             "monitor.clickhouse", "analytics.trace_log",
             "analytics.trace_query", "utils.mem", "kv.service", "kv.remote",
             "kv.shard", "kv.surgery", "kv.distributor", "app.kv_main",
-            "benchmarks.meta_bench", "benchmarks.kv_distributor_bench"):
+            "benchmarks.meta_bench", "benchmarks.kv_distributor_bench",
+            "mgmtd.chain_table", "migration.service", "migration.rebalancer",
+            "app.migration_main", "benchmarks.rebalance_drill_bench",
+            "testing.craq_sim", "testing.conn_sim", "testing.race",
+            "analysis", "analysis.engine", "analysis.rules"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -104,8 +108,9 @@ def _entry_points():
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import (
         ckpt_bench, codec_economics, devbench, kvcache_bench,
-        kvcache_fleet_bench, kvcache_scale_bench, repair_drill_bench,
-        health_smoke, sort_bench, storage_bench, usrbio_bench)
+        kvcache_fleet_bench, kvcache_scale_bench, rebalance_drill_bench,
+        repair_drill_bench, health_smoke, sort_bench, storage_bench,
+        usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -211,14 +216,19 @@ def _entry_points():
         lambda: repair_drill_bench.main(["--stripes", "2"]),
         # the health plane's smoke on LocalCluster(with_monitor=True)
         lambda: asyncio.run(health_smoke.measure()),
+        # the rebalance drill without --cpu, by its CLI and by run_bench
+        # (its cells' LocalCluster on the CUDA backend)
+        lambda: rebalance_drill_bench.main(["--smoke"]),
+        lambda: asyncio.run(rebalance_drill_bench.run_bench(
+            rebalance_drill_bench.parse_args(["--smoke"]))),
     ]
 
 
-@pytest.mark.parametrize("i", range(72))
+@pytest.mark.parametrize("i", range(74))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 72
+    assert len(entries) == 74
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -305,7 +315,8 @@ def test_sort_bench_cli_fails_without_gpu():
     ("storage_bench", ["--seconds", "0.1"]),
     ("storage_bench", ["--write-ab", "--num-ops", "1"]),
     ("codec_economics", ["--seconds", "0.1"]),
-    ("repair_drill_bench", ["--stripes", "2"])])
+    ("repair_drill_bench", ["--stripes", "2"]),
+    ("rebalance_drill_bench", ["--smoke"])])
 def test_baseline_harness_cli_fails_without_gpu(name, argv):
     """Without a GPU `python -m t3fs_torch.benchmarks.<name>` exits non-zero
     before any work and prints no result; it never falls back to the CPU."""

@@ -53,10 +53,24 @@ def test_storage_bench_read_mode_with_checksum_verify(backend):
 
 
 def test_storage_bench_survives_fault_injection():
-    """DebugFlags-driven injected server errors are absorbed by retries."""
-    res = asyncio.run(sb.run_bench(bench_args(
-        "plain", "--mode", "write", "--inject-server-error", "0.05")))
-    assert res["ops"] > 0 and res["errors"] == 0
+    """DebugFlags-driven injected server errors do not stop the bench, and
+    the bench counts each write they fail as an error, never as an op: the
+    injected INTERNAL is not retryable, so write_chunk returns it in its
+    IOResult (the port's bench checks that result; the reference's drops
+    it and counts the write as done)."""
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.testing.spies import spied
+    from t3fs_torch.utils.status import StatusCode
+
+    results = []
+    with spied(StorageClient, "write_chunk", results, result=True):
+        res = asyncio.run(sb.run_bench(bench_args(
+            "plain", "--mode", "write", "--inject-server-error", "0.05")))
+    failed = [r for r in results if r.status.code != int(StatusCode.OK)]
+    assert all(r.status.message == "INTERNAL: injected server error"
+               for r in failed)
+    assert res["ops"] > 0 and res["errors"] == len(failed)
+    assert res["ops"] + res["errors"] <= len(results)
 
 
 def test_storage_bench_trace_ab():
