@@ -4,6 +4,7 @@ every kernel.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --rebalance-drill RUNS
+    python3 chip_smoke.py --soak RUNS
 
 Phases (any failure exits non-zero; nothing is caught into "ok"):
   0  report the card; build the kernels from t3fs_torch/csrc (into the
@@ -284,8 +285,31 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      p50s and p99s, the jobs, bytes moved, the pacer, B1 batches and items
      a node and each stall LoopStallDetector (0.1 s) saw on the timed
      run's loop, with its frames
+ 31  only with --soak RUNS, which runs phase 0 and then this phase RUNS
+     times in turn, a JSON line of each run's gates, and exits 0 only if
+     every run passed every check; the default run leaves it out, since its
+     progress gate held in 8 of 21 runs on the card.  The mixed-workload
+     soak: the reference's scenarios as shipped, through t3fs_torch/benchmarks/soak_bench.run_cell in this
+     process's loop, every node a CudaChecksumBackend (B1) and every EC
+     client's codec TorchECCodec on the card: (a) configs/soak.toml faults
+     on, 75 s of six drivers at once (dataloader reads on the rpc and ring
+     planes, EC RS(4+2) checkpoint cycles, KVCache churn under eviction, a
+     metadata scan, a mini GraySort) over 5 nodes, 5 chains of 3 and 8
+     RS(4+2) chains, with a straggler, a node add, a crash, a drain, bit rot
+     and a second straggler, the rebalancer on; (b) configs/soak_smoke.toml
+     faults off, 12 s, the cell that gates fairness.  Fails on a cell's own
+     gates (zero wrong bytes and progress in every window in both, Jain
+     fairness >= 0.8 in b), a fault of (a) whose injector failed, B1
+     launched on no node in (a), or (a)'s checkpoint stripes on no cuda-*
+     route (TorchECCodec.codec_counts); prints each workload's p50, p99 and
+     ops, the fairness, each gate, the fault events, B1 batches and items a
+     node, each cell's launches and codec routes, the worst trace's first
+     12 lines (render_trace), the stalls LoopStallDetector (0.1 s) saw in
+     (a), the host (CPU model, cores, load, a fixed Python loop's seconds)
+     before and after, and the phase's wall; the tracing config it found
+     is put back
  15  each phase's wall, the kernels line, the card line, then the ok line
-     last (with --rebalance-drill, a line of each run's gates and ratio
+     last (with --rebalance-drill or --soak, a line of each run's gates
      instead)
 
 Every phase that drives TorchECCodec checks that no call took a plain
@@ -300,7 +324,8 @@ its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
 its riders after their cluster's start and warmups, each run of phase 27's
 parts, 27d's before its microbench; phase 28's and 29's storage processes
 each start at 0 and log their count at their stop; phase 30's drill, both
-cells from their clusters' start) and read just after; launches
+cells from their clusters' start; phase 31's cells, each from its
+runner's warm-up) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
 14, 16's checks and 17's kernel checks) are not counted.
 """
@@ -319,6 +344,8 @@ import time
 
 import numpy as np
 import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 SEED = 20261016
 # H100 SXM HBM3 rate (NVIDIA data sheet); the bound of a kernel that only
@@ -478,6 +505,10 @@ SHARD_DIST_ARGS = ["--smoke"]
 REBALANCE_ARGS = ["--smoke", "--chunk-size", "1048576", "--write-size", "1048576",
                   "--budget-mbps", "32"]
 STALL_THRESHOLD_S = 0.1
+# phase 31: the reference's scenarios as shipped, (a) the full mixed soak
+# faults on, (b) the smoke scenario faults off (the cell that gates fairness)
+SOAK_CELLS = (("configs/soak.toml", True), ("configs/soak_smoke.toml", False))
+
 
 
 def log(msg: str) -> None:
@@ -5286,6 +5317,191 @@ def rebalance_runs(dev: torch.device, runs: int) -> int:
     return 1 if failed else 0
 
 
+# --- phase 31: the mixed-workload soak ----------------------------------------
+
+
+async def phase_soak_cells(dev: torch.device, cells=SOAK_CELLS) -> dict:
+    """Each cell through soak_bench.run_cell in this process's loop, with
+    its launches counted from the cell's start (the runner's warm-up and
+    setup included), each node's B1 batches and items read as its server
+    stops, each EC codec's routes as it closes, and the faults-on cell
+    under LoopStallDetector.  The tracing config the phase found is put
+    back when it ends."""
+    from t3fs_torch.benchmarks import soak_bench
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.soak import load_spec
+    from t3fs_torch.storage.server import StorageServer
+    from t3fs_torch.testing.cluster import LocalCluster
+    from t3fs_torch.testing.race import LoopStallDetector
+    from t3fs_torch.testing.spies import checked_before_stop, spied
+    from t3fs_torch.utils import tracing
+
+    backend = "cpu" if dev.type == "cpu" else "cuda"
+    started, codecs = [], []
+    b1_nodes: dict[int, dict] = {}     # cell -> node -> [B1 batches, items]
+    routes: dict[int, list] = {}       # cell -> each closed codec's routes
+
+    def server_stopped(ss) -> None:
+        counts = b1_nodes.setdefault(len(started) - 1, {}).setdefault(ss.node_id, [0, 0])
+        counts[0] += getattr(ss.node.codec, "batches", 0)
+        counts[1] += getattr(ss.node.codec, "batched_items", 0)
+
+    out = {"cells": [], "launches": [], "walls": [], "stalls": [],
+           "b1_nodes": b1_nodes, "routes": routes}
+    prev = tracing.get_config()
+    try:
+        with spied(LocalCluster, "start", started), \
+                checked_before_stop(StorageServer, server_stopped), \
+                spied(TorchECCodec, "close", codecs):
+            for i, (config, faults_on) in enumerate(cells):
+                spec = load_spec(os.path.join(HERE, config))
+                cc.reset_launches()
+                t0 = time.perf_counter()
+                if faults_on:
+                    async with LoopStallDetector(threshold_s=STALL_THRESHOLD_S) as det:
+                        res = await soak_bench.run_cell(spec, True, 1, True, backend)
+                    out["stalls"] = det.stalls
+                else:
+                    res = await soak_bench.run_cell(spec, False, 1, True, backend)
+                out["walls"].append(time.perf_counter() - t0)
+                out["launches"].append(dict(cc.launches))
+                routes[i] = [dict(c.codec_counts) for c in codecs]
+                del codecs[:]
+                out["cells"].append((config, faults_on, res))
+    finally:
+        tracing.configure(prev)
+        tracing.BUFFER.reset()
+    return out
+
+
+def host_probe() -> dict:
+    """The host the loop runs on: its CPU model, the cores this process may
+    use, the load average, and the seconds one core takes for a fixed pure
+    Python loop (2 000 000 iterations), the loop's own kind of work."""
+    model = ""
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.startswith("model name")), "")
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc ^= i
+    return {"cpu": model, "cores": len(os.sched_getaffinity(0)),
+            "loadavg": [round(x, 2) for x in os.getloadavg()],
+            "py_loop_s": round(time.perf_counter() - t0, 4)}
+
+
+def soak_cell_lines(config: str, faults_on: bool, res: dict) -> None:
+    name = f"{os.path.basename(config)} faults {'on' if faults_on else 'off'}"
+    log(f"[31] {name}: {res['elapsed_s']} s of traffic, fairness {res['fairness']}, "
+        f"{res['wrong_bytes']} wrong bytes, passed {res['passed']}")
+    for wl, w in res["workloads"].items():
+        log(f"[31]   {wl} ({w['kind']}, {w['mode']}): {w['ops_ok']} ops ok, "
+            f"{w['ops_err']} errors, {w['shed']} shed, {w['cancelled']} cancelled; "
+            f"p50 {w['p50_ms']} ms, p99 {w['p99_ms']} ms, {w['ops_s']} ops/s, share "
+            f"{w['share']}, {w['mb_moved']} MB; ops a window {w['window_ops']}")
+    for gate, g in res["gates"].items():
+        log(f"[31]   gate {gate}: {'PASS' if g['ok'] else 'FAIL'} ({g['detail']})")
+    for f in res["faults"]:
+        log(f"[31]   fault at {f['t']} s: {f['kind']} node {f['node']} "
+            f"{'ok' if f['ok'] else 'FAILED'} ({f['detail']})")
+
+
+def phase_soak(dev: torch.device, cells=SOAK_CELLS) -> dict:
+    """Phase 31 on `dev`: the reference's scenarios, each cell's gates, the
+    faults applied, B1 on the nodes and the cuda-* routes on the faults-on
+    cell's checkpoint stripes (module docstring); returns the launches of
+    both cells."""
+    from t3fs_torch.benchmarks.devbench import card_line
+
+    t0 = time.perf_counter()
+    host = host_probe()
+    log(f"[31] host before: {json.dumps(host)}")
+    out = asyncio.run(phase_soak_cells(dev, cells))
+    log(f"[31] host after: {json.dumps(host_probe())}")
+    failed = []
+    for i, (config, faults_on, res) in enumerate(out["cells"]):
+        soak_cell_lines(config, faults_on, res)
+        nodes = out["b1_nodes"].get(i, {})
+        log(f"[31]   per node (B1 batches = launches, items): " + ", ".join(
+            f"n{n} {b}, {it}" for n, (b, it) in sorted(nodes.items())))
+        log(f"[31]   launches {out['launches'][i]}; EC codec routes "
+            f"{out['routes'].get(i, [])}; cell wall {out['walls'][i]:.1f} s")
+        for line in res["worst_trace_excerpt"].splitlines():
+            log(f"[31]   | {line}")
+        if not res["passed"]:
+            failed.append(f"{os.path.basename(config)}: gates {res['gates']}")
+        if faults_on:
+            bad = [f for f in res["faults"] if not f["ok"]]
+            if bad:
+                failed.append(f"{os.path.basename(config)}: faults failed {bad}")
+            if dev.type == "cuda":
+                if not any(b > 0 for b, _ in nodes.values()):
+                    failed.append(f"{os.path.basename(config)}: B1 launched on no "
+                                  f"node: {nodes}")
+                cell_routes = out["routes"].get(i, [])
+                if not (any(r.get("cuda-encode-words", 0) > 0 for r in cell_routes)
+                        and all(k.startswith("cuda-") for r in cell_routes for k in r)):
+                    failed.append(f"{os.path.basename(config)}: the checkpoint "
+                                  f"stripes took no cuda-* route: {cell_routes}")
+    stalls = out["stalls"]
+    worst = max(stalls, key=lambda st: st.duration_s, default=None)
+    log(f"[31] LoopStallDetector (threshold {STALL_THRESHOLD_S} s) over the faults-on "
+        f"cell's loop: {len(stalls)} stalls" + (
+            f", worst {worst.duration_s:.3f} s in {stall_frames(worst.stack)}"
+            if worst else ""))
+    for st in sorted(stalls, key=lambda st: -st.duration_s)[:8]:
+        log(f"[31] stall {st.duration_s:.3f} s: {stall_frames(st.stack, 3)}")
+    launches: dict[str, int] = {}
+    for part in out["launches"]:
+        add_launches(launches, part)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log(f"[31] phase: {time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
+    expect(not failed, "[31] " + "; ".join(failed))
+    return launches
+
+
+def soak_runs(dev: torch.device, runs: int) -> int:
+    """`--soak RUNS`: phase 31 `runs` times in turn, a run that fails a
+    check logged and the next one started; 0 only if every run passed
+    every check."""
+    from t3fs_torch.benchmarks import soak_bench
+
+    results, orig = [], soak_bench.run_cell
+
+    async def run_cell(spec, faults_on, *a):
+        results.append(await orig(spec, faults_on, *a))
+        results[-1]["faults_on_cell"] = faults_on
+        return results[-1]
+
+    failed = []
+    soak_bench.run_cell = run_cell
+    try:
+        for i in range(runs):
+            del results[:]
+            t0 = time.perf_counter()
+            try:
+                phase_soak(dev)
+                err = ""
+            except Exception as e:
+                failed.append(i + 1)
+                err = f"{type(e).__name__}: {e}"
+                log(f"[31] run {i + 1} of {runs} failed: {e}")
+            log(json.dumps({"soak_run": i + 1, "of": runs,
+                            "wall_s": round(time.perf_counter() - t0, 1),
+                            "cells": [{"faults_on": r["faults_on_cell"],
+                                       "fairness": r["fairness"],
+                                       "gates": {k: g["ok"] for k, g in r["gates"].items()},
+                                       "faults_ok": all(f["ok"] for f in r["faults"])}
+                                      for r in results], "failed": err}))
+    finally:
+        soak_bench.run_cell = orig
+    log(json.dumps({"soak_runs": runs, "failed_runs": failed}))
+    return 1 if failed else 0
+
+
 def host_warnings() -> None:
     """usrbio.cpp through the host compiler with -Wall -Wextra (syntax
     only): its includes stand on their own and it warns of nothing."""
@@ -5305,13 +5521,17 @@ def host_warnings() -> None:
 
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    drill_runs = 0
+    drill_runs = soak_runs_asked = 0
     if argv:
-        if len(argv) != 2 or argv[0] != "--rebalance-drill" or not argv[1].isdigit() \
-                or int(argv[1]) < 1:
-            print("usage: chip_smoke.py [--rebalance-drill RUNS]", file=sys.stderr)
+        if len(argv) != 2 or argv[0] not in ("--rebalance-drill", "--soak") \
+                or not argv[1].isdigit() or int(argv[1]) < 1:
+            print("usage: chip_smoke.py [--rebalance-drill RUNS | --soak RUNS]",
+                  file=sys.stderr)
             return 2
-        drill_runs = int(argv[1])
+        if argv[0] == "--soak":
+            soak_runs_asked = int(argv[1])
+        else:
+            drill_runs = int(argv[1])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a GPU", file=sys.stderr)
@@ -5344,6 +5564,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if drill_runs:
         return rebalance_runs(dev, drill_runs)
+    if soak_runs_asked:
+        return soak_runs(dev, soak_runs_asked)
 
     walls: dict[int, float] = {}
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
+SMOKE = str(ROOT / "configs" / "soak_smoke.toml")
 
 IMPORT_ALL = """
 import pkgutil, sys
@@ -29,7 +30,8 @@ print(len(mods), bad)
 assert not bad, bad
 for pkg in ("net", "mgmtd", "storage", "client", "testing", "utils", "kv",
             "monitor", "core", "meta", "fuse", "ckpt", "lib", "usrbio",
-            "kvcache", "app", "analytics", "migration", "analysis"):
+            "kvcache", "app", "analytics", "migration", "analysis", "cli",
+            "soak"):
     assert f"t3fs_torch.{pkg}" in mods, pkg
 for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worker",
             "benchmarks.usrbio_bench", "benchmarks.kvcache_scale_bench",
@@ -46,7 +48,9 @@ for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worke
             "mgmtd.chain_table", "migration.service", "migration.rebalancer",
             "app.migration_main", "benchmarks.rebalance_drill_bench",
             "testing.craq_sim", "testing.conn_sim", "testing.race",
-            "analysis", "analysis.engine", "analysis.rules"):
+            "analysis", "analysis.engine", "analysis.rules", "cli.admin",
+            "soak.spec", "soak.drivers", "soak.faults", "soak.harvest",
+            "soak.runner", "benchmarks.soak_bench", "benchmarks.health_bench"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -107,10 +111,10 @@ def _entry_points():
 
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import (
-        ckpt_bench, codec_economics, devbench, kvcache_bench,
+        ckpt_bench, codec_economics, devbench, health_bench, kvcache_bench,
         kvcache_fleet_bench, kvcache_scale_bench, rebalance_drill_bench,
-        repair_drill_bench, health_smoke, sort_bench, storage_bench,
-        usrbio_bench)
+        repair_drill_bench, health_smoke, soak_bench, sort_bench,
+        storage_bench, usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
@@ -119,6 +123,7 @@ def _entry_points():
     from t3fs_torch.ops.msr import default_msr
     from t3fs_torch.ops.repair_program import xor_program
     from t3fs_torch.parallel import codec_mesh
+    from t3fs_torch.soak import SoakRunner, load_spec
     from t3fs_torch.storage.codec_backend import (
         CudaChecksumBackend, make_checksum_backend)
     from t3fs_torch.storage.server import StorageServer
@@ -221,14 +226,23 @@ def _entry_points():
         lambda: rebalance_drill_bench.main(["--smoke"]),
         lambda: asyncio.run(rebalance_drill_bench.run_bench(
             rebalance_drill_bench.parse_args(["--smoke"]))),
+        # the mixed-workload soak: the runner (its cluster and EC codecs on
+        # the card), soak_bench's cell runner and CLI, and health_bench's
+        # CLI and cold cell (its LocalCluster on the CUDA backend)
+        lambda: SoakRunner(load_spec(SMOKE)),
+        lambda: asyncio.run(soak_bench.run_cell(load_spec(SMOKE), True, 1, False)),
+        lambda: soak_bench.main(["--config", SMOKE, "--duration", "1"]),
+        lambda: health_bench.main(["--trials", "1"]),
+        lambda: asyncio.run(health_bench.run_cold_ab(
+            health_bench.parse_args(["--trials", "1"]))),
     ]
 
 
-@pytest.mark.parametrize("i", range(74))
+@pytest.mark.parametrize("i", range(79))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 74
+    assert len(entries) == 79
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -316,7 +330,9 @@ def test_sort_bench_cli_fails_without_gpu():
     ("storage_bench", ["--write-ab", "--num-ops", "1"]),
     ("codec_economics", ["--seconds", "0.1"]),
     ("repair_drill_bench", ["--stripes", "2"]),
-    ("rebalance_drill_bench", ["--smoke"])])
+    ("rebalance_drill_bench", ["--smoke"]),
+    ("soak_bench", ["--config", SMOKE, "--duration", "1"]),
+    ("health_bench", ["--trials", "1"])])
 def test_baseline_harness_cli_fails_without_gpu(name, argv):
     """Without a GPU `python -m t3fs_torch.benchmarks.<name>` exits non-zero
     before any work and prints no result; it never falls back to the CPU."""
@@ -327,6 +343,20 @@ def test_baseline_harness_cli_fails_without_gpu(name, argv):
                        timeout=120)
     assert r.returncode != 0
     assert "device='cpu'" in r.stderr and "{" not in r.stdout
+
+
+def test_admin_cli_main_needs_no_gpu(monkeypatch, capsys):
+    """The admin CLI's main does no device work: without a GPU it parses,
+    dispatches and reports, as the reference's does; a command it has not
+    ported yet is refused by the parser."""
+    from t3fs_torch.cli import admin
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="soak-status needs --monitor"):
+        admin.main(["soak-status"])
+    with pytest.raises(SystemExit):
+        admin.main(["list-nodes"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_port_refuses_what_it_has_not_ported():
