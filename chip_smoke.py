@@ -169,7 +169,7 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      process, its lines checked
  25  the GraySort-analog through storage, the KVCache store and its tier:
      (a) sort_bench's job at the reference's multi-process shape (8
-     workers, 32 partitions, 1 MiB chunks; 256 MiB of gensort input, cut
+     workers, 32 partitions, 1 MiB chunks; 128 MiB of gensort input, cut
      from its 1 GiB) on the port's
      in-process fabric (3 nodes, 1 replica, a CudaChecksumBackend a node:
      B1 on every chunk of 64 KiB and more), once with the device sorter on
@@ -194,7 +194,7 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      app ring opened from a second process (its pops wait on a
      process-shared semaphore).  (a) usrbio_bench's documented 4 KiB random
      reads (depth 64, 5 s) in --data-plane-ab and --cross-host-ab, one trial
-     a cell, over a 16 MiB file (cut: see USRBIO_SMALL_FILE): rpc against
+     a cell, over an 8 MiB file (cut: see USRBIO_SMALL_FILE): rpc against
      ring, shm against cross-host batched against per-op; every read
      verified against the populated bytes, every CRC on the host.  (b) the
      same on the ring at 256 KiB blocks (the ring slot size) over 256 MiB:
@@ -257,7 +257,7 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      kernels line
  29  meta over the replicated and range-sharded KV: DevCluster(kv_shards=2)
      (phase 28's storage layout on B1, meta over two kv_main processes each
-     on its own WAL), meta_bench --mgmtd at 2048 files, a 64 MiB file, kv2
+     on its own WAL), meta_bench --mgmtd at 1024 files, a 64 MiB file, kv2
      SIGKILLed amid create streams and respawned over its WAL, every
      acknowledged create stat, then kv_distributor_bench --smoke while the
      phase has time left; the storage processes' B1 launches from their logs
@@ -308,6 +308,33 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      (a), the host (CPU model, cores, load, a fixed Python loop's seconds)
      before and after, and the phase's wall; the tracing config it found
      is put back
+ 32  an operator's session through the port's admin CLI
+     (t3fs_torch/cli/admin.py: its build_parser and dispatch in this
+     process's loop, stdout captured) against the port's DevCluster at the
+     deployment's defaults (3 storage processes on B1, 3 replicas, 1 MiB
+     chunks, the WAL KV) with meta, monitor and 10 chains; the CLI's
+     ckpt-verify codec a TorchECCodec on the card, built and warmed before
+     the session.  The cluster commands (list-nodes, lease, routing,
+     cluster-health, config-versions, client-sessions, space-info, and
+     app-info, get-config, verify-config, hot-update-config on storage1,
+     gen-chains without installing); a seeded 64 MiB file put (B1 on each
+     replica of each chunk), ls, stat (its length), chmod, chown, get (equal
+     bytes), checksum (the host CRC), mv, trash-put, trash-ls; dump-chunkmeta
+     and query-chunk on its chunks, checksum-sweep of its chain (every chunk
+     ok), fill-zero of chunks 0-1 (REPLACEs on B1), get (zeros there, the
+     rest unchanged) and the sweep again; bench at its defaults; steps 10
+     and 20 of one 64 MiB float32 leaf saved here at RS(8+2) over the 10
+     chains, ckpt-list, ckpt-stat (rs=(8+2)), ckpt-verify (nothing missing),
+     one data shard of step 20 removed and ckpt-verify --repair (repaired
+     equal to the removed), ckpt-verify (missing=0), step 20 restored bit
+     for bit, ckpt-gc --keep 1 (removed=[10]); `python -m
+     t3fs_torch.cli.admin ... ckpt-verify` as a subprocess on the card, its
+     line equal to the one in process; rm -r and trash-clean.  Fails on a
+     command's non-zero return, a value not as stated, a storage process
+     that launched no B1 (from its log at its stop), or no cuda-* route in
+     the CLI's codec; prints each command with its first lines and wall,
+     the bench line, B1 batches, items and launches a storage process, the
+     codec's routes, the launches and the phase's wall
  15  each phase's wall, the kernels line, the card line, then the ok line
      last (with --rebalance-drill or --soak, a line of each run's gates
      instead)
@@ -322,8 +349,9 @@ pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups, each sort job and kvcache_bench run of phase 25 after
 its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
 its riders after their cluster's start and warmups, each run of phase 27's
-parts, 27d's before its microbench; phase 28's and 29's storage processes
-each start at 0 and log their count at their stop; phase 30's drill, both
+parts, 27d's before its microbench; phase 28's, 29's and 32's storage
+processes each start at 0 and log their count at their stop, and phase
+32's session in this process after its warm-ups; phase 30's drill, both
 cells from their clusters' start; phase 31's cells, each from its
 runner's warm-up) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
@@ -421,9 +449,11 @@ CKPT_PER_CHAIN = 2             # chunk writes in flight per chain
 # Cut to keep the phase near 120 s of command time (the full counts took
 # 146 s for the sort job's two runs and 129.6 s for the two stores, on an
 # NVIDIA H100 80GB HBM3 at 700 W and its host): the input from 1 GiB to
-# 256 MiB, the 16 KiB blocks from 16 384 to 2048 (kvcache_bench's
+# 128 MiB (256 MiB took 39.3 s for both runs on a slow host, which with
+# phases 26 and 29 at their former counts put the whole default run at
+# 935 s), the 16 KiB blocks from 16 384 to 2048 (kvcache_bench's
 # documented run)
-SORT_JOB_MB = 256              # 2 684 352 gensort records of 100 B
+SORT_JOB_MB = 128              # 1 342 176 gensort records of 100 B
 SORT_JOB_WORKERS = 8
 SORT_JOB_PARTITIONS = 32
 SORT_JOB_CHUNK = 1 << 20
@@ -441,18 +471,19 @@ FLEET_ARGS = ["--procs", "2", "--sessions", "8", "--turns", "1", "--prompts",
               "16", "--blocks", "4", "--admission-ab", "--json"]
 # phase 26: the usrbio ring data plane on usrbio_bench's documented cluster
 # (LocalCluster of 3 nodes, 2 chains of 2 replicas, with meta).  (a) its
-# documented 4 KiB random reads (depth 64, 5 s a cell, one trial) over a
-# 16 MiB file: cut from a KVCache node's working set so that each cell's
-# 4 KiB populate (4096 chunk writes) stays near 7-15 s (the host of an
-# NVIDIA H100 80GB HBM3 machine took 275-570 chunk writes/s, and a 64 MiB
-# file 79 s on the rpc plane); (b) the same at the
+# documented 4 KiB random reads (depth 64, 5 s a cell, one trial) over an
+# 8 MiB file: cut from a KVCache node's working set so that each cell's
+# 4 KiB populate (2048 chunk writes) stays near 4-8 s (the host of an
+# NVIDIA H100 80GB HBM3 machine took 275-570 chunk writes/s, a 64 MiB
+# file 79 s on the rpc plane, and a 16 MiB file 11-14 s a cell on a slow
+# host); (b) the same at the
 # ring slot size, 256 KiB blocks over a 256 MiB file, then 64 app OP_WRITEs;
 # (c) a 256 MiB checkpoint (4 leaves of CKPT_LEAF_BYTES at RS(8+2), 256 KiB
 # shards) and 512 KVCache blocks of 16 KiB on data_plane="ring"
 USRBIO_ARGS = ["--nodes", "3", "--replicas", "2", "--chains", "2", "--depth", "64",
                "--seconds", "5", "--trials", "1", "--verify", "--seed", str(SEED + 26)]
 USRBIO_SMALL_BLOCK = 4096
-USRBIO_SMALL_FILE = 16 << 20
+USRBIO_SMALL_FILE = 8 << 20
 USRBIO_BIG_BLOCK = 256 << 10   # StorageClientConfig.ring_slot_size
 USRBIO_BIG_FILE = 256 << 20
 USRBIO_APP_WRITES = 64         # the app iov's depth: one wave
@@ -485,11 +516,12 @@ DEV_BENCH_ARGS = ["--mode", "write", "--chunk-size", str(HARNESS_CHUNK),
 # phase 29: meta over a range-sharded KV of two kv_main processes, each on
 # its own WAL, the storage processes at phase 28's layout on B1; a 60 s
 # heartbeat timeout (no storage process is killed here); meta_bench --mgmtd
-# at the reference's defaults with 128 files a directory (2048 files), a
+# at the reference's defaults with 64 files a directory (1024 files; 2048
+# took 65 s with the bench's start on a slow host), a
 # 64 MiB file through FileSystem, then kv2 SIGKILLed amid creates and
 # respawned over its WAL on the port it first bound
 SHARD_KV = 2
-META_BENCH_ARGS = ["--dirs", "16", "--files", "128", "--concurrency", "32"]
+META_BENCH_ARGS = ["--dirs", "16", "--files", "64", "--concurrency", "32"]
 SHARD_FILE_BYTES = 64 << 20
 SHARD_ACKED = 128           # creates acknowledged before the kill
 SHARD_STREAM = 8            # creates in flight when kv2 dies
@@ -5026,6 +5058,294 @@ def phase_sharded(dev: torch.device) -> dict:
     return res["launches"]
 
 
+# --- phase 32: an operator's session through the port's admin CLI ------------
+
+OPS_FILE_BYTES = 64 << 20      # the operator's file: 64 chunks of DEV_CHUNK
+OPS_CHAINS = 10                # DevCluster chains of 3: one a shard of RS(8+2)
+OPS_CKPT = "/ckpts/run"
+OPS_LOST_SLOT = 2              # the data shard of step 20's stripe 0 removed
+
+
+async def admin_cmd(ctx, parser, *argv, lines: int = 3) -> str:
+    """One command through the port's CLI (its build_parser and dispatch) in
+    this loop, its stdout captured; logs the command, its wall and its first
+    lines, and fails the phase on a non-zero return."""
+    from t3fs_torch.cli import admin
+
+    args = parser.parse_args([str(a) for a in argv])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = await admin.dispatch(ctx, args)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    out = buf.getvalue()
+    log(f"[32] $ t3fs-admin {' '.join(map(str, argv))}  ({wall_ms:.1f} ms)")
+    for line in out.splitlines()[:lines]:
+        log(f"[32]   {line}")
+    expect(rc == 0, f"[32] {argv[0]} returned {rc}: {out[-600:]}")
+    return out
+
+
+def read_file(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def write_file(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def sweep_counts(out: str) -> tuple[int, int, int]:
+    """(ok, bad, errors) of a checksum-sweep line."""
+    import re
+
+    m = re.search(r": (\d+) ok, (\d+) bad, (\d+) errors", out)
+    expect(m is not None, f"[32] no sweep counts in {out!r}")
+    return int(m[1]), int(m[2]), int(m[3])
+
+
+def verify_counts(out: str) -> dict:
+    """The key=value counts of a ckpt-verify line."""
+    import re
+
+    return {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", out)}
+
+
+async def phase_operator_session(dev: torch.device, run_dir: str,
+                                 file_bytes: int = OPS_FILE_BYTES,
+                                 leaf_bytes: int = CKPT_LEAF_BYTES,
+                                 chunk_bytes: int = DEV_CHUNK) -> dict:
+    """Phase 32: an operator's session through the port's admin CLI against
+    the port's DevCluster (its storage processes on B1), the CLI's
+    ckpt-verify codec a TorchECCodec on `dev`; the module entry point once
+    as a subprocess.  Returns the launches: this process's during the
+    session, and B1's in each storage process from its log."""
+    import subprocess
+
+    from t3fs_torch.app.storage_main import read_codec_counters
+    from t3fs_torch.ckpt import CheckpointReader, CheckpointStore, CheckpointWriter
+    from t3fs_torch.cli import admin
+    from t3fs_torch.client.ec_client import ECLayout, ECStorageClient
+    from t3fs_torch.client.ec_codec import TorchECCodec
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.ops.codec import crc32c
+    from t3fs_torch.storage.types import UpdateType
+
+    t_phase = time.perf_counter()
+    backend = "cuda" if dev.type == "cuda" else "cpu"
+    rng = np.random.default_rng(SEED + 32)
+    data = rng.integers(0, 256, file_bytes, dtype=np.uint8).tobytes()
+    local = os.path.join(run_dir, "ops.bin")
+    await asyncio.to_thread(write_file, local, data)
+    leaves = {step: rng.standard_normal(leaf_bytes // 4, dtype=np.float32)
+              for step in (10, 20)}
+    c = timed_cluster(os.path.join(run_dir, "cluster"), with_meta=True,
+                      with_monitor=True, num_chains=OPS_CHAINS,
+                      chunk_size=chunk_bytes, checksum_backend=backend,
+                      meta_event_trace=meta_event_trace(32))
+    parser = admin.build_parser()
+    writer_codec = TorchECCodec(device=backend)
+    ctx = None
+    out: dict = {}
+    try:
+        await c.start()
+        ctx = admin.AdminContext(c.mgmtd_address, c.meta_address,
+                                 c.monitor_address, device=backend)
+        log(f"[32] DevCluster up {time.perf_counter() - t_phase:.1f} s into the "
+            f"phase (its data made first): {c.num_storage} storage processes on "
+            f"the {backend} checksum backend, {OPS_CHAINS} chains of "
+            f"{c.replicas}, {chunk_bytes >> 10} KiB chunks, WAL KV, meta and "
+            f"monitor; each process answering after (s): " + ", ".join(
+                f"{n} {c.ready[n] - c.spawned[n]:.1f}" for n in sorted(c.ready)))
+        # both codecs built and warmed off the loop before the session's clock
+        lost_present = tuple(s for s in range(K + M) if s != OPS_LOST_SLOT)[:K]
+        for codec in (ctx.ec_codec(), writer_codec):
+            await codec.encode_verified(np.zeros((K, chunk_bytes), np.uint8), K, M)
+            await asyncio.to_thread(codec.warmup_decode,
+                                    [(lost_present, (OPS_LOST_SLOT,))], chunk_bytes)
+        fs, sc = await ctx.fs(), await ctx.storage_client()
+        s1 = (await ctx.mgmtd_client()).routing().node_address(1)
+        cc.reset_launches()
+        t_session = time.perf_counter()
+
+        # (1) the cluster
+        for argv in (("list-nodes",), ("lease",), ("routing",),
+                     ("cluster-health",), ("config-versions",),
+                     ("client-sessions",), ("space-info", s1), ("app-info", s1),
+                     ("get-config", s1),
+                     ("verify-config", s1, "resync_period_s=0.5"),
+                     ("hot-update-config", s1, "resync_period_s=0.5"),
+                     ("gen-chains", "--nodes", "1,2,3", "--chains", OPS_CHAINS)):
+            await admin_cmd(ctx, parser, *argv)
+
+        # (2) files: the seeded file up, its metadata, back, its CRC, trash
+        await admin_cmd(ctx, parser, "mkdir", "/ops")
+        await admin_cmd(ctx, parser, "put", local, "/ops/blob")
+        await admin_cmd(ctx, parser, "ls", "/ops")
+        st = await admin_cmd(ctx, parser, "stat", "/ops/blob")
+        expect(f"length={file_bytes}" in st, f"[32] stat: {st}")
+        await admin_cmd(ctx, parser, "chmod", "/ops/blob", "640")
+        await admin_cmd(ctx, parser, "chown", "/ops/blob", 7, 8)
+        got = os.path.join(run_dir, "got.bin")
+        await admin_cmd(ctx, parser, "get", "/ops/blob", got)
+        expect(await asyncio.to_thread(read_file, got) == data,
+               "[32] get: the bytes differ")
+        crc = crc32c(data)
+        out_crc = await admin_cmd(ctx, parser, "checksum", "/ops/blob")
+        expect(f"crc32c={crc:#010x} length={file_bytes}" in out_crc,
+               f"[32] checksum {out_crc!r}, the host CRC {crc:#010x}")
+        await admin_cmd(ctx, parser, "mv", "/ops/blob", "/ops/blob2")
+        moved = await admin_cmd(ctx, parser, "trash-put", "/ops/blob2")
+        path = moved.split(" -> ")[1].strip()
+        await admin_cmd(ctx, parser, "trash-ls")
+
+        # (3) storage: chunk metadata, sweeps, a FillZero repair
+        ino = await fs.stat(path)
+        routing = (await ctx.mgmtd_client()).routing()
+        sweeps = {}
+        for chain in sorted(set(ino.layout.chains)):
+            head = routing.node_address(routing.chains[chain].head().node_id)
+            meta_out = await admin_cmd(ctx, parser, "dump-chunkmeta", head, chain)
+            chunks = len(meta_out.strip().splitlines()) - 1
+            for idx in (0, 1, file_bytes // chunk_bytes - 1):
+                await admin_cmd(ctx, parser, "query-chunk", head, chain,
+                                ino.inode_id, idx)
+            ok, bad, errors = sweep_counts(await admin_cmd(
+                ctx, parser, "checksum-sweep", chain))
+            expect((ok, bad, errors) == (chunks, 0, 0),
+                   f"[32] sweep of chain {chain}: {ok} ok, {bad} bad, {errors} "
+                   f"errors of {chunks} chunks")
+            sweeps[chain] = chunks
+        first = ino.layout.chains[0]
+        await admin_cmd(ctx, parser, "fill-zero", first, ino.inode_id, 0, 2,
+                        "--chunk-size", chunk_bytes)
+        await admin_cmd(ctx, parser, "get", path, got)
+        back = await asyncio.to_thread(read_file, got)
+        zeroed = 2 * chunk_bytes
+        expect(back[:zeroed] == bytes(zeroed) and back[zeroed:] == data[zeroed:],
+               "[32] after fill-zero: [0, 2 chunks) not zeros or the rest changed")
+        for chain in sweeps:
+            ok, bad, errors = sweep_counts(await admin_cmd(
+                ctx, parser, "checksum-sweep", chain))
+            expect(bad == 0 and errors == 0 and ok == sweeps[chain],
+                   f"[32] sweep after fill-zero: {ok} ok, {bad} bad, {errors} errors")
+
+        # (4) the quick bench at its defaults
+        bench = await admin_cmd(ctx, parser, "bench")
+        expect(bench.startswith("write: "), f"[32] bench: {bench}")
+        out["bench"] = bench.strip()
+
+        # (5) checkpoints: two steps saved here, inspected, one shard lost
+        # and repaired through the CLI, restored, the older step reclaimed
+        lay = ECLayout.create(k=K, m=M, chunk_size=chunk_bytes,
+                              chains=list(range(1, OPS_CHAINS + 1)))
+        ec_w = ECStorageClient(sc, codec=writer_codec)
+        writer = CheckpointWriter(ec_w, fs, lay, OPS_CKPT)
+        t0 = time.perf_counter()
+        for step, leaf in leaves.items():
+            await writer.save(step, {"w": leaf})
+        log(f"[32] steps 10 and 20 saved ({2 * leaf_bytes >> 20} MiB of float32 at "
+            f"RS({K}+{M}), {chunk_bytes >> 10} KiB chunks): "
+            f"{time.perf_counter() - t0:.2f} s; the writer's routes "
+            f"{dict(writer_codec.codec_counts)}")
+        await admin_cmd(ctx, parser, "ckpt-list", OPS_CKPT)
+        st = await admin_cmd(ctx, parser, "ckpt-stat", OPS_CKPT, "--step", 10)
+        expect(f"rs=({K}+{M})" in st, f"[32] ckpt-stat: {st}")
+        v = verify_counts(await admin_cmd(ctx, parser, "ckpt-verify", OPS_CKPT))
+        expect(v["missing"] == v["corrupt"] == v["unrecoverable"] == 0,
+               f"[32] ckpt-verify: {v}")
+        man = await CheckpointStore(fs, OPS_CKPT).load(20)
+        lf = man.leaves[0]
+        cid = man.layout.shard_chunk(lf.inode, 0, OPS_LOST_SLOT)
+        r = await sc.write_chunk(man.layout.shard_chain(0, OPS_LOST_SLOT), cid, 0,
+                                 b"", chunk_bytes, update_type=UpdateType.REMOVE)
+        expect(r.status.code == 0, f"[32] REMOVE of {cid}: {r.status}")
+        removed = 1
+        v = verify_counts(await admin_cmd(ctx, parser, "ckpt-verify", OPS_CKPT,
+                                          "--step", 20, "--repair"))
+        expect(v["missing"] >= 1 and v["repaired"] == removed
+               and v["unrecoverable"] == 0, f"[32] ckpt-verify --repair: {v}")
+        v = verify_counts(await admin_cmd(ctx, parser, "ckpt-verify", OPS_CKPT,
+                                          "--step", 20))
+        expect(v["missing"] == 0 and v["corrupt"] == 0,
+               f"[32] ckpt-verify after the repair: {v}")
+        tree = await CheckpointReader(ECStorageClient(sc, codec=writer_codec), fs,
+                                      OPS_CKPT).restore(20)
+        expect(np.asarray(tree["w"]).tobytes() == leaves[20].tobytes(),
+               "[32] step 20 restored differs")
+        gc_out = await admin_cmd(ctx, parser, "ckpt-gc", OPS_CKPT, "--keep", 1)
+        expect("kept=[20] removed=[10]" in gc_out, f"[32] ckpt-gc: {gc_out}")
+        line = (await admin_cmd(ctx, parser, "ckpt-verify", OPS_CKPT)).strip()
+        routes = dict(ctx.ec_codec().codec_counts)
+        out["session_s"] = time.perf_counter() - t_session
+        out["launches"] = dict(cc.launches)
+        log(f"[32] the CLI's codec routes (warm-ups included) {routes}; this "
+            f"process's launches in the session {out['launches']}")
+        if dev.type == "cuda":
+            expect(any(k.startswith("cuda-") for k in routes)
+                   and all(k.startswith("cuda-") for k in routes),
+                   f"[32] ckpt-verify's codec took no cuda-* route: {routes}")
+
+        # (6) the module entry point, as an operator runs it (the card's
+        # codec unless --cpu)
+        t0 = time.perf_counter()
+        r = await asyncio.to_thread(
+            subprocess.run, [sys.executable, "-m", "t3fs_torch.cli.admin", "--mgmtd",
+             c.mgmtd_address, "--meta", c.meta_address,
+             *(["--cpu"] if dev.type == "cpu" else []), "ckpt-verify", OPS_CKPT],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+                HERE, os.environ.get("PYTHONPATH")]))))
+        log(f"[32] $ python -m t3fs_torch.cli.admin ... ckpt-verify {OPS_CKPT}: "
+            f"rc {r.returncode} in {time.perf_counter() - t0:.1f} s: "
+            f"{r.stdout.strip()}")
+        expect(r.returncode == 0 and r.stdout.strip() == line,
+               f"[32] the entry point: rc {r.returncode}, {r.stdout!r} (in "
+               f"process: {line!r}); {r.stderr[-1500:]}")
+
+        # (7) cleanup
+        await admin_cmd(ctx, parser, "rm", "-r", "/ops")
+        await admin_cmd(ctx, parser, "trash-clean")
+    finally:
+        if ctx is not None:
+            await ctx.close()
+        await writer_codec.close()
+        await c.stop()
+    counters = {}
+    for i in range(1, c.num_storage + 1):
+        got = read_codec_counters(c._path(f"storage{i}.log"))
+        expect(got is not None, f"[32] storage{i} logged no counters at its stop")
+        counters[i] = got
+    log("[32] per storage process (B1 batches, items, B1 launches): " + ", ".join(
+        f"storage{i} {v['batches']}, {v['batched_items']}, {v['crc_words_launches']}"
+        for i, v in counters.items()))
+    if dev.type == "cuda":
+        for i, v in counters.items():
+            expect(v["backend"] == "cuda" and v["crc_words_launches"] > 0,
+                   f"[32] storage{i} launched no B1: {v}")
+    add_launches(out["launches"], {"crc_words": sum(
+        v["crc_words_launches"] for v in counters.values())})
+    return out
+
+
+def phase_operator(dev: torch.device) -> dict:
+    """Phase 32 on `dev`; returns its launches (this process's in the
+    session and the storage processes')."""
+    import tempfile
+
+    from t3fs_torch.benchmarks.devbench import card_line
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="t3fs-ops-") as run_dir:
+        res = asyncio.run(phase_operator_session(dev, run_dir))
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log(f"[32] bench: {res['bench']}")
+    log(f"[32] phase: {time.perf_counter() - t0:.1f} s on {card} (the session "
+        f"{res['session_s']:.1f} s); launches {res['launches']}")
+    return res["launches"]
+
+
 # --- phase 30: elastic membership under live traffic --------------------------
 
 _replace_at = contextvars.ContextVar("replace_at", default=None)
@@ -5645,6 +5965,8 @@ def main(argv: list[str] | None = None) -> int:
         main_runs.append(phase_deployment(dev, config2))
     with wall(29):
         main_runs.append(phase_sharded(dev))
+    with wall(32):
+        main_runs.append(phase_operator(dev))
     log(f"[15] phase walls (s) on {card}: " + ", ".join(
         f"{n} {w:.1f}" for n, w in sorted(walls.items()))
         + f"; all phases {sum(walls.values()):.1f}")

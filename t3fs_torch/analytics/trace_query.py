@@ -8,7 +8,8 @@ slow", "which target errors"), surfaced in the reference as
 `t3fs-admin trace-read` / `trace-top`.
 
 The port of t3fs/analytics/trace_query.py, a copy with its imports
-re-pointed (the admin CLI is not ported yet).
+re-pointed; t3fs_torch/cli/admin.py's `trace-read` and `trace-top` read
+through it.
 """
 
 from __future__ import annotations

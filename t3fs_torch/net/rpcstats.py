@@ -16,7 +16,7 @@ now records a 4-way split per method:
 Samples land in a bounded per-method reservoir (uniform replacement), so
 the recorder is O(1) per call and a long bench cannot grow it.  Dump a
 snapshot with `dump()` (or set T3FS_RPC_STATS=<path> to auto-dump at
-process exit) and render it with `t3fs.cli.admin rpc-top <path>`.
+process exit) and render it with `t3fs_torch.cli.admin rpc-top <path>`.
 """
 
 from __future__ import annotations

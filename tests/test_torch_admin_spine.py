@@ -187,30 +187,51 @@ def test_trace_show_through_main_equal_across_packages(seed, capsys):
 
 
 def test_parser_lists_exactly_the_ported_commands():
-    """The port's registry holds trace-show and soak-status, each with the
-    reference's help and options; the program name and the global options
-    are the reference's, so the next slice only adds commands."""
-    assert sorted(port_admin.COMMANDS) == ["soak-status", "trace-show"]
+    """The port's registry holds the reference's 80 commands in its order,
+    each with the reference's help and options; the program name is the
+    reference's, and the global options are the reference's plus `--cpu`
+    (ckpt-verify's codec on the host).  An unknown name stays refused."""
+    assert list(port_admin.COMMANDS) == list(ref_admin.COMMANDS)
+    assert len(port_admin.COMMANDS) == 80
     ref_p, port_p = ref_admin.build_parser(), port_admin.build_parser()
     assert port_p.prog == ref_p.prog == "t3fs-admin"
 
+    def type_key(t):
+        # chmod's mode is a lambda in both packages: held by what it parses
+        return (t.__name__, t("640")) if getattr(
+            t, "__name__", "") == "<lambda>" else t
+
     def opts(p):
-        return [(a.dest, a.option_strings, a.default, a.type, a.help)
+        return [(a.dest, a.option_strings, a.default, type_key(a.type),
+                 a.help)
                 for a in p._actions if a.dest not in ("help", "command")]
 
-    assert opts(port_p) == opts(ref_p)
+    extra = [o for o in opts(port_p) if o not in opts(ref_p)]
+    assert [o for o in opts(port_p) if o[0] != "cpu"] == opts(ref_p)
+    assert [(d, o, default) for d, o, default, _t, _h in extra] == [
+        ("cpu", ["--cpu"], False)]
     sub = {a.dest: a for a in port_p._actions}["command"]
     ref_sub = {a.dest: a for a in ref_p._actions}["command"]
-    assert sorted(sub.choices) == ["soak-status", "trace-show"]
+    assert sorted(sub.choices) == sorted(ref_sub.choices)
+    assert len(sub.choices) == 80
+
+    def sub_opts(p):
+        return [(a.dest, a.option_strings, a.default, a.nargs, a.const,
+                 a.choices, a.required, a.metavar, a.help,
+                 type(a).__name__) for a in p._actions]
+
     for name, p in sub.choices.items():
         assert opts(p) == opts(ref_sub.choices[name]), name
+        assert sub_opts(p) == sub_opts(ref_sub.choices[name]), name
         assert port_admin.COMMANDS[name][2] == ref_admin.COMMANDS[name][2]
     args = port_p.parse_args(["--monitor", "h:1", "trace-show", "0x1f",
                               "--limit", "7"])
     assert (args.command, args.trace_id, args.limit, args.monitor) == (
         "trace-show", "0x1f", 7, "h:1")
+    assert not args.cpu
+    assert port_p.parse_args(["--cpu", "ckpt-verify", "/c"]).cpu
     with pytest.raises(SystemExit):
-        port_p.parse_args(["list-nodes"])       # not ported yet
+        port_p.parse_args(["no-such-command"])
 
 
 def test_repl_lists_commands_and_recovers(monkeypatch, capsys):

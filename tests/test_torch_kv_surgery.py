@@ -1,12 +1,14 @@
 """The port's online shard surgery (t3fs_torch.kv.surgery: ShardAdmin's
 split, move, merge and resume over the service's shard gates) against the
-JAX package's: every case of tests/test_kv_surgery.py on the port but the
-admin CLI's (cli/admin.py is not ported), then a whole move with the same
-RPCs in the same order, the same map and rows, and a move killed at each
-of its RPCs and resumed by a new driver, with the intent, map and rows
-after the kill and after the resume equal to the reference's.  time.time
-is pinned in both packages with monkeypatch (tests/torch_kv_diff.py);
-nothing in either package changes for it."""
+JAX package's: every case of tests/test_kv_surgery.py on the port, then a
+whole move with the same RPCs in the same order, the same map and rows, a
+move killed at each of its RPCs and resumed by a new driver, with the
+intent, map and rows after the kill and after the resume equal to the
+reference's, and the admin CLI's kv-* commands: one operator sequence
+through the reference's CLI and through the port's, each over port KV
+groups of its own, with equal outputs.  time.time is pinned in both
+packages with monkeypatch (tests/torch_kv_diff.py); nothing in either
+package changes for it."""
 
 import asyncio
 
@@ -471,3 +473,91 @@ def test_move_killed_then_resumed_like_reference(monkeypatch, kill_at):
     assert out["port"] == out["ref"]
     rows = out["ref"]["read_back"]
     assert len(rows) == 40 and out["ref"]["after_resume"]["intent"] is None
+
+
+# ------------------------------------------------ the admin CLI's kv-*
+
+async def kv_cli_run(admin) -> list:
+    """Three single-node port groups with no map yet and one package's
+    CLI: publish the map, split, move, resume, merge, each shown with
+    kv-map and kv-status.  -> each command's (rc, stdout, stderr) with the
+    groups' addresses named g0..g2."""
+    from test_torch_admin_cli import Session
+    P = D.PKGS["port"]
+    names = D.Names()
+    nodes = []
+    for g in range(3):
+        node = await D.Node(P, P.engine.MemKVEngine(),
+                            prepare_timeout_s=5.0).start()
+        names.add(node.address, f"g{g}")
+        nodes.append(node)
+    g0, g1, g2 = (n.address for n in nodes)
+    sess = Session(admin)
+    out = []
+
+    async def cli(*argv):
+        out.append(names(await sess.run(*argv)))
+        return out[-1]
+
+    try:
+        await cli("kv-status", g0, g1, g2, "127.0.0.1:1")
+        await cli("kv-map", g0)                     # no map yet
+        await cli("kv-publish-map", f"{g0};6d;{g1}")
+        await cli("kv-publish-map", f"{g0};6d;{g1}")  # already published
+        await cli("kv-publish-map", f"{g0};6d")       # malformed spec
+        m = await P.surgery.ShardAdmin([g0], client=sess.ctx.cli).load_map()
+        kv = P.shard.ShardedKVEngine(m, client=nodes[0].ship, map_home=[g0])
+
+        async def seed(txn):
+            for i in range(10):
+                txn.set(b"a%02d" % i, b"av%d" % i)
+            for i in range(30):
+                txn.set(b"z%02d" % i, b"zv%d" % i)
+        await P.engine.with_transaction(kv, seed)
+        await kv.close()
+        await cli("kv-map", g0, "--no-load")
+        await cli("kv-split", "s", g0)
+        await cli("kv-move", "s", "MAX", g2, "--map-home", g0)
+        await cli("kv-move-resume", g0)
+        await cli("kv-map", g0, "--no-load")
+        await cli("kv-merge", "m", "MAX", "--map-home", g0)  # across groups
+        await cli("kv-merge", "m", "MAX", "--map-home", g0, "--move-first")
+        await cli("kv-map", g0, "--no-load")
+        await cli("kv-status", g0, g1, g2)
+        out.append(names([D.dump_engine(n.engine) for n in nodes]))
+    finally:
+        await sess.close()
+        for n in nodes:
+            await n.stop()
+    return out
+
+
+def test_kv_cli_commands_equal_across_packages(monkeypatch):
+    """The kv-* commands (tests/test_kv_surgery.py's CLI case) through both
+    packages' build_parser and dispatch, each over port groups of its own:
+    equal outputs, equal rows after."""
+    import t3fs.cli.admin as ref_admin
+    import t3fs_torch.cli.admin as port_admin
+    from test_torch_admin_cli import cases_of
+    out = {}
+    for name, admin in (("ref", ref_admin), ("port", port_admin)):
+        D.pin(monkeypatch)
+        out[name] = run(kv_cli_run(admin))
+    assert out["port"] == out["ref"]
+    port = out["port"]
+    assert port[0][1] == ("g0: primary seq=0\ng1: primary seq=0\n"
+                          "g2: primary seq=0\n"
+                          "127.0.0.1:1: unreachable (RPC_CONNECT_FAILED)\n")
+    assert "published shard map v1: 2 ranges" in port[2][1]
+    assert port[3][0] == "exit map already published (v1); surgery " \
+        "commands evolve it from here"
+    assert port[6][1] == "map v2: 3 ranges\n"
+    assert port[7][1] == "moved; map v3\n"
+    assert port[8][1] == "no pending move intent\n"
+    assert "merged; map v" in port[11][1]
+    rows = port[-1]
+    assert sum(len(r) for r in rows) >= 40
+    assert {"kv-status", "kv-publish-map", "kv-map", "kv-split", "kv-move",
+            "kv-merge", "kv-move-resume"} == cases_of(
+        "tests/test_torch_kv_surgery.py::"
+        "test_kv_cli_commands_equal_across_packages")

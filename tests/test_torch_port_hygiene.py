@@ -50,7 +50,8 @@ for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worke
             "testing.craq_sim", "testing.conn_sim", "testing.race",
             "analysis", "analysis.engine", "analysis.rules", "cli.admin",
             "soak.spec", "soak.drivers", "soak.faults", "soak.harvest",
-            "soak.runner", "benchmarks.soak_bench", "benchmarks.health_bench"):
+            "soak.runner", "benchmarks.soak_bench", "benchmarks.health_bench",
+            "utils.trash", "client.storage_client_inmem"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -116,6 +117,7 @@ def _entry_points():
         repair_drill_bench, health_smoke, soak_bench, sort_bench,
         storage_bench, usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
+    from t3fs_torch.cli import admin
     from t3fs_torch.client.ec_client import ECStorageClient
     from t3fs_torch.client.ec_codec import TorchECCodec
     from t3fs_torch.ops import (
@@ -235,14 +237,18 @@ def _entry_points():
         lambda: health_bench.main(["--trials", "1"]),
         lambda: asyncio.run(health_bench.run_cold_ab(
             health_bench.parse_args(["--trials", "1"]))),
+        # the admin CLI's ckpt-verify: its context's stripe codec, and the
+        # command through main without --cpu (no address is ever dialled)
+        lambda: admin.AdminContext("127.0.0.1:1").ec_codec(),
+        lambda: admin.main(["--meta", "127.0.0.1:1", "ckpt-verify", "/c"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(79))
+@pytest.mark.parametrize("i", range(81))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 79
+    assert len(entries) == 81
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -346,17 +352,36 @@ def test_baseline_harness_cli_fails_without_gpu(name, argv):
 
 
 def test_admin_cli_main_needs_no_gpu(monkeypatch, capsys):
-    """The admin CLI's main does no device work: without a GPU it parses,
-    dispatches and reports, as the reference's does; a command it has not
-    ported yet is refused by the parser."""
+    """The admin CLI's main does no device work for any command but
+    ckpt-verify: without a GPU it parses, dispatches and reports, as the
+    reference's does, and an unknown command is refused by the parser.
+    ckpt-verify without a GPU and without --cpu raises the port's no-GPU
+    error before it opens any connection."""
     from t3fs_torch.cli import admin
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="soak-status needs --monitor"):
         admin.main(["soak-status"])
+    with pytest.raises(SystemExit, match="metrics needs --monitor"):
+        admin.main(["metrics"])
     with pytest.raises(SystemExit):
-        admin.main(["list-nodes"])
+        admin.main(["no-such-command"])
     assert "invalid choice" in capsys.readouterr().err
+
+    def no_connection(*a, **k):
+        raise AssertionError("ckpt-verify connected before its codec")
+
+    monkeypatch.setattr(admin.AdminContext, "mgmtd_client", no_connection)
+    monkeypatch.setattr(admin, "MetaClient", no_connection)
+    monkeypatch.setattr(admin.Client, "call", no_connection)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        admin.main(["--meta", "127.0.0.1:1", "ckpt-verify", "/ckpts/run"])
+    # with --cpu the codec is built on the host; the command then dials
+    ctx = admin.AdminContext("127.0.0.1:1", device="cpu")
+    assert ctx.ec_codec() is ctx.ec_codec()
+    assert ctx.ec_codec().device.type == "cpu"
+    with pytest.raises(AssertionError, match="connected before its codec"):
+        admin.main(["--cpu", "--meta", "127.0.0.1:1", "ckpt-verify", "/c"])
 
 
 def test_port_refuses_what_it_has_not_ported():

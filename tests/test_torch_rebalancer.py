@@ -6,8 +6,8 @@ cluster with the same chain memberships, the same (chain, src, dst) jobs
 and the same stored bytes and ChunkMeta per chunk, and a job store written
 by either package's MigrationService and resumed by the other's.
 
-The port has no admin CLI yet: the reference's (t3fs.cli.admin) reads the
-port's Migration and Rebalance services over the wire.  Each cluster runs
+The port's admin CLI (t3fs_torch.cli.admin) reads the port's Migration
+and Rebalance services over the wire, as a subprocess.  Each cluster runs
 its nodes' CRCs on the host and is steadied for test load: a heartbeat
 timeout the load cannot reach, and a killed node declared dead in mgmtd
 until it starts again (as tests/test_torch_recovery_benches.py does);
@@ -188,7 +188,7 @@ async def wait_job(mig, job_id, states=("done", "failed"), timeout_s=30.0):
 def _run_cli(args_list):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
-        [sys.executable, "-m", "t3fs.cli.admin", *args_list],
+        [sys.executable, "-m", "t3fs_torch.cli.admin", *args_list],
         capture_output=True, text=True, timeout=60,
         env={**os.environ, "PYTHONPATH": os.pathsep.join(
             filter(None, [repo, os.environ.get("PYTHONPATH", "")]))})
@@ -591,7 +591,7 @@ def test_destination_flap_mid_sync_resumable():
 def _run_cli_migrate_status(migration_address: str) -> str:
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
-        [sys.executable, "-m", "t3fs.cli.admin",
+        [sys.executable, "-m", "t3fs_torch.cli.admin",
          "--migration", migration_address, "migrate-status"],
         capture_output=True, text=True, timeout=60,
         env={**os.environ, "PYTHONPATH": os.pathsep.join(

@@ -2,7 +2,9 @@
 port's fabric: the reference's tests/test_storage_client.py cases in scope
 (file-range striping, failover, channels, the packed wires, both transfer
 modes), under the port's two checksum backends on the CPU.  The in-memory
-fake client is not ported.
+fake client (t3fs_torch.client.storage_client_inmem) is held against this
+client and against the reference's fake in
+tests/test_torch_storage_client_inmem.py.
 """
 
 import asyncio
