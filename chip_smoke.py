@@ -10,7 +10,10 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
   0  report the card; build the kernels from t3fs_torch/csrc (into the
      ignored t3fs_torch/_build/) and print the build time; the host library
      (chunk engine, host CRC, io_uring reader, usrbio rings), /dev/shm's
-     size, and usrbio.cpp through g++ -Wall -Wextra without a warning
+     size, and usrbio.cpp through g++ -Wall -Wextra without a warning; the
+     FUSE probe (the effective uid, /dev/fuse, the errno of opening it and
+     of one trial mount(2) of fuse.t3fs with FuseKernelMount's options):
+     "available" or "refused" with the first failing call
   1  B1 (CRC words) against its plain PyTorch version: random segments
      (4096 rows, and ragged 16-row units: 1, 7, 1001 rows), every run
      length 1..16 (chunks of 1..17, 24, 40 segments), 4 MiB chunks x 64, the
@@ -335,6 +338,30 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      the CLI's codec; prints each command with its first lines and wall,
      the bench line, B1 batches, items and launches a storage process, the
      codec's routes, the launches and the phase's wall
+ 33  when phase 0's probe says the kernel mount is available (else
+     "[33] not run: <the probe's answer>"): a user's POSIX checkpoint
+     through FUSE.  The port's DevCluster at the deployment's defaults (3
+     storage processes on B1, 3 replicas, 1 MiB chunks, the WAL KV, meta)
+     mounted by `python -m t3fs_torch.app.fuse_main` (a process, max_write
+     128 KiB, group_source "registry", no GPU visible); from this process a
+     seeded 64 MiB file in write(2)s of 1 MiB and a torch.save state dict
+     of ~16 MiB (float32, bfloat16, int64, an odd length), fsync, stat,
+     listdir, rename, symlink, readlink, get-conf/attr_timeout; that
+     fuse_main stopped by SIGTERM (exit 0, unmounted) and a second one
+     mounted: every byte back in 1 MiB preads in a seeded order and 256
+     seeded 4 KiB preads, torch.load(map_location="cuda") every tensor
+     equal; every chunk of every replica over the storage RPCs (replicas
+     equal, each checksum the host CRC, each chunk its bytes); truncate,
+     unlink, rmdir and meta's GC clearing every replica; `python -m
+     t3fs_torch.benchmarks.meta_bench --fuse --json` at the reference's
+     defaults (its own process), every op count the reference's formula,
+     beside phase 29's meta_bench --mgmtd.  Fails on a wrong byte, size,
+     listing or errno, a fuse_main exit other than 0, a mount left after
+     its process stopped, a replica or checksum wrong, or a storage
+     process with fewer B1 items than 64 MiB / 128 KiB (each 128 KiB
+     WRITE payload on each replica); prints each step's wall, the MB/s
+     through the mount, B1 batches, items and launches a storage process
+     (the launches added to the kernels line) and meta_bench's JSON
  15  each phase's wall, the kernels line, the card line, then the ok line
      last (with --rebalance-drill or --soak, a line of each run's gates
      instead)
@@ -349,7 +376,7 @@ pass of phase 21, each step of phases 22, 23 and 24 after its cluster's
 start and warmups, each sort job and kvcache_bench run of phase 25 after
 its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
 its riders after their cluster's start and warmups, each run of phase 27's
-parts, 27d's before its microbench; phase 28's, 29's and 32's storage
+parts, 27d's before its microbench; phase 28's, 29's, 32's and 33's storage
 processes each start at 0 and log their count at their stop, and phase
 32's session in this process after its warm-ups; phase 30's drill, both
 cells from their clusters' start; phase 31's cells, each from its
@@ -5031,7 +5058,8 @@ async def phase_sharded_meta(dev: torch.device, run_dir: str,
 def phase_sharded(dev: torch.device) -> dict:
     """Phase 29 on `dev`: meta over two kv_main shards, then, while the
     phase stays inside SHARD_BUDGET_S, kv_distributor_bench --smoke;
-    returns B1's launches in the storage processes."""
+    returns the phase's figures, B1's launches in the storage processes
+    under "launches"."""
     import tempfile
 
     from t3fs_torch.benchmarks import kv_distributor_bench as kdb
@@ -5055,7 +5083,7 @@ def phase_sharded(dev: torch.device) -> dict:
         f"ops/s {res['meta_bench']}; kv2 answering {res['kv2_up_s']:.2f} s and "
         f"meta's next commit {res['next_commit_s']:.3f} s after its respawn; "
         f"storage processes' launches {res['launches']}")
-    return res["launches"]
+    return res
 
 
 # --- phase 32: an operator's session through the port's admin CLI ------------
@@ -5343,6 +5371,403 @@ def phase_operator(dev: torch.device) -> dict:
     log(f"[32] bench: {res['bench']}")
     log(f"[32] phase: {time.perf_counter() - t0:.1f} s on {card} (the session "
         f"{res['session_s']:.1f} s); launches {res['launches']}")
+    return res["launches"]
+
+
+# --- phase 33: a user's FUSE mount over the deployment ------------------------
+
+# one seeded file, written by write(2)s of 1 MiB.  Cut from 256 MiB (and the
+# state dict from 64 MiB): the kernel sends one WRITE at a time and the
+# card's host took 25-54 ms a 128 KiB WRITE (2.4-4.8 MB/s), so the phase took
+# 165 s alone at those sizes (113 s in the whole script at 128 and 32 MiB);
+# the widths (1 MiB chunks, 3 replicas, 128 KiB max_write) are unchanged
+MOUNT_FILE_BYTES = 64 << 20
+MOUNT_IO = 1 << 20                 # the write(2) and pread(2) size, 1 MiB aligned
+MOUNT_MAX_WRITE = 1 << 17          # fuse_main's default max_write: a WRITE's payload
+MOUNT_SMALL_READS = 256            # seeded 4 KiB preads after the 1 MiB ones
+# a fuse_main must mount and answer within it: a hang detector (the card's
+# host took 0.9-1.3 s from the spawn, and 5.9-13.9 s while importing the
+# package still imported torch)
+MOUNT_WAIT_S = 30.0
+# the torch.save state dict, ~16 MiB: float32, bfloat16, int64 and one
+# tensor of odd length
+MOUNT_STATE = (("layer.w", torch.float32, (2048, 1024)),
+               ("layer.w_bf16", torch.bfloat16, (2048, 1024)),
+               ("step_ids", torch.int64, (1 << 18,)),
+               ("odd", torch.float32, (499_979,)))
+# meta_bench --fuse at the reference's defaults: 8 dirs x 64 files, 32 workers
+MOUNT_BENCH_ARGS = ["--fuse", "--json"]
+
+
+def fuse_probe() -> str:
+    """Phase 0's probe of the kernel mount: the effective uid, whether
+    /dev/fuse exists, the errno of opening it and of one trial mount(2) of
+    fuse.t3fs on an empty directory with FuseKernelMount.mount's options
+    (then umount2(MNT_DETACH) and the fd closed).  Logs one line; returns
+    "available" or "refused: <the first call that failed> <errno name>"."""
+    import ctypes
+    import errno
+    import tempfile
+
+    from t3fs_torch.fuse.kernel import MNT_DETACH, MS_NODEV, MS_NOSUID, _libc
+
+    euid, present = os.geteuid(), os.path.exists("/dev/fuse")
+    res = {"open": "-", "mount": "-"}
+    answer = "available"
+    try:
+        fd = os.open("/dev/fuse", os.O_RDWR)
+    except OSError as e:
+        res["open"] = errno.errorcode.get(e.errno, str(e.errno))
+        answer = f"refused: open(/dev/fuse) {res['open']}"
+    else:
+        res["open"] = "0"
+        d = tempfile.mkdtemp(prefix="t3fs-fuse-probe-")
+        try:
+            opts = (f"fd={fd},rootmode=40000,user_id={os.getuid()},"
+                    f"group_id={os.getgid()},allow_other")
+            r = _libc.mount(b"t3fs", d.encode(), b"fuse.t3fs", MS_NOSUID | MS_NODEV,
+                            opts.encode())
+            if r == 0:
+                res["mount"] = "0"
+                _libc.umount2(d.encode(), MNT_DETACH)
+            else:
+                e = ctypes.get_errno()
+                res["mount"] = errno.errorcode.get(e, str(e))
+                answer = f"refused: mount(fuse.t3fs) {res['mount']}"
+        finally:
+            os.close(fd)
+            os.rmdir(d)
+    log(f"[0] fuse: euid {euid}, /dev/fuse {'present' if present else 'absent'}, "
+        f"open(/dev/fuse, O_RDWR) errno {res['open']}, trial mount(2) of "
+        f"fuse.t3fs errno {res['mount']}: {answer}")
+    return answer
+
+
+def spawn_fuse_main(mgmtd_address: str, mnt: str, out_path: str):
+    """`python -m t3fs_torch.app.fuse_main` as a user starts it, at its
+    defaults (max_write 128 KiB, group_source "registry"), with no GPU
+    visible: the mount does no device work."""
+    import subprocess
+
+    with open(out_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "t3fs_torch.app.fuse_main",
+             "--set", f"mgmtd_address={mgmtd_address}", "--set", f"mountpoint={mnt}"],
+            stdout=out, stderr=subprocess.STDOUT, cwd=os.path.dirname(out_path),
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+                filter(None, [HERE, os.environ.get("PYTHONPATH")]))))
+
+
+async def wait_mounted(proc, mnt: str, out_path: str) -> float:
+    """Seconds from the spawn until the mount answers: mounted, and
+    /t3fs-virt listed through it."""
+    t0 = time.perf_counter()
+    while True:
+        if proc.poll() is not None:
+            expect(False, f"[33] fuse_main exited {proc.returncode} before "
+                   f"mounting {mnt}: {open(out_path).read()[-1500:]}")
+        if os.path.ismount(mnt) and sorted(os.listdir(f"{mnt}/t3fs-virt")) == [
+                "get-conf", "rm-rf", "set-conf"]:
+            return time.perf_counter() - t0
+        expect(time.perf_counter() - t0 < MOUNT_WAIT_S,
+               f"[33] {mnt}: no mount within {MOUNT_WAIT_S} s")
+        await asyncio.sleep(0.02)
+
+
+async def stop_fuse_main(proc, mnt: str, out_path: str) -> float:
+    """SIGTERM, as a user stops it: exit 0 and the mount gone."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = await asyncio.to_thread(proc.wait, 60)
+    expect(rc == 0, f"[33] fuse_main at {mnt} exited {rc}: "
+           f"{open(out_path).read()[-1500:]}")
+    expect(not os.path.ismount(mnt), f"[33] {mnt} still mounted after its "
+           "fuse_main stopped")
+    return time.perf_counter() - t0
+
+
+def mount_state(seed: int, shapes=MOUNT_STATE) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, dtype, shape in shapes:
+        if dtype.is_floating_point:
+            out[name] = torch.randn(shape, generator=g).to(dtype)
+        else:
+            out[name] = torch.randint(-(1 << 62), 1 << 62, shape, generator=g,
+                                      dtype=dtype)
+    return out
+
+
+async def chunks_of(mgmtd, inodes: set[int]) -> int:
+    """Chunks of `inodes` that any target still holds (metadata only)."""
+    from t3fs_torch.net.client import Client
+    from t3fs_torch.storage.types import TargetOpReq
+
+    await mgmtd.refresh()
+    routing = mgmtd.routing()
+    cli = Client()
+    try:
+        n = 0
+        for chain in routing.chains.values():
+            for t in chain.targets:
+                rsp, _ = await cli.call(routing.node_address(t.node_id),
+                                        "Storage.get_all_chunk_metadata",
+                                        TargetOpReq(target_id=t.target_id))
+                n += sum(1 for m in rsp.metas if m.chunk_id.inode in inodes)
+        return n
+    finally:
+        await cli.close()
+
+
+async def phase_mount_session(dev: torch.device, run_dir: str,
+                              file_bytes: int = MOUNT_FILE_BYTES,
+                              shapes=MOUNT_STATE,
+                              bench_args: list[str] = MOUNT_BENCH_ARGS,
+                              bench_shape: tuple[int, int] = (8, 64)) -> dict:
+    """Phase 33: a user's POSIX checkpoint through the kernel FUSE mount.
+    The port's DevCluster at the deployment's defaults (3 storage processes
+    on `dev`'s checksum backend, 3 replicas, 1 MiB chunks, the WAL KV, meta),
+    mounted by `python -m t3fs_torch.app.fuse_main`; this process writes a
+    seeded file and a torch.save checkpoint through one mount and reads both
+    back through a fresh one (a new superblock: every byte through the
+    daemon's READ).  Returns the phase's figures and B1's launches in the
+    storage processes."""
+    import subprocess
+
+    from t3fs_torch.app.storage_main import read_codec_counters
+    from t3fs_torch.client.mgmtd_client import MgmtdClient
+    from t3fs_torch.fuse.kernel import MNT_DETACH, _libc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 33)
+    data = rng.integers(0, 256, file_bytes, dtype=np.uint8).tobytes()
+    state = mount_state(SEED + 33, shapes)
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    backend = "cuda" if dev.type == "cuda" else "cpu"
+    c = timed_cluster(os.path.join(run_dir, "cluster"), with_meta=True,
+                      chunk_size=DEV_CHUNK, checksum_backend=backend,
+                      meta_event_trace=meta_event_trace(33))
+    mnts = [os.path.join(run_dir, f"mnt{i}") for i in (1, 2)]
+    outs = [os.path.join(run_dir, f"fuse{i}.out") for i in (1, 2)]
+    for mnt in mnts:
+        os.makedirs(mnt)
+    procs: list = []
+    mgmtd = None
+    out: dict = {"walls": {}}
+    walls = out["walls"]
+    try:
+        t0 = time.perf_counter()
+        await c.start()
+        walls["cluster"] = time.perf_counter() - t0
+        log(f"[33] DevCluster up {time.perf_counter() - t_phase:.1f} s into the "
+            f"phase (its data made first, {state_bytes / 2**20:.1f} MiB of state "
+            f"dict): {c.num_storage} storage processes on the {backend} checksum "
+            f"backend, {c.replicas} replicas, {c.chunk_size >> 10} KiB chunks, WAL "
+            f"KV, meta; each process answering after (s): " + ", ".join(
+                f"{n} {c.ready[n] - c.spawned[n]:.1f}" for n in sorted(c.ready)))
+
+        # (2) the writer's mount
+        procs.append(spawn_fuse_main(c.mgmtd_address, mnts[0], outs[0]))
+        walls["mount1"] = await wait_mounted(procs[0], mnts[0], outs[0])
+        log(f"[33] fuse_main 1 (pid {procs[0].pid}) mounted {mnts[0]} and "
+            f"listed /t3fs-virt {walls['mount1']:.2f} s after its spawn")
+
+        # (3) POSIX I/O from this process: the mount's loop is in fuse_main's
+        d1 = f"{mnts[0]}/ckpt"
+
+        def write_through() -> tuple[float, float]:
+            os.mkdir(d1)
+            t = time.perf_counter()
+            fd = os.open(f"{d1}/data.bin", os.O_WRONLY | os.O_CREAT, 0o644)
+            try:
+                view = memoryview(data)
+                for off in range(0, file_bytes, MOUNT_IO):
+                    n = os.write(fd, view[off:off + MOUNT_IO])
+                    expect(n == min(MOUNT_IO, file_bytes - off),
+                           f"[33] short write at {off}: {n}")
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+            w = time.perf_counter() - t
+            t = time.perf_counter()
+            with open(f"{d1}/state.pt", "wb") as f:
+                torch.save(state, f)
+                f.flush()
+                os.fsync(f.fileno())
+            return w, time.perf_counter() - t
+        w, s = await asyncio.to_thread(write_through)
+        walls.update(write=w, save=s)
+        ckpt_len = os.stat(f"{d1}/state.pt").st_size
+        expect(os.stat(f"{d1}/data.bin").st_size == file_bytes
+               and ckpt_len > state_bytes, "[33] sizes through the mount")
+        expect(sorted(os.listdir(d1)) == ["data.bin", "state.pt"],
+               f"[33] listing: {os.listdir(d1)}")
+        os.rename(f"{d1}/state.pt", f"{d1}/step-100.pt")
+        os.symlink("step-100.pt", f"{d1}/latest")
+        expect(os.readlink(f"{d1}/latest") == "step-100.pt"
+               and sorted(os.listdir(d1)) == ["data.bin", "latest", "step-100.pt"],
+               f"[33] rename and symlink: {sorted(os.listdir(d1))}")
+        conf = os.readlink(f"{mnts[0]}/t3fs-virt/get-conf/attr_timeout")
+        expect(conf == "1.0", f"[33] get-conf/attr_timeout {conf!r}")
+        out.update(write_MB_s=file_bytes / w / 1e6, save_MB_s=ckpt_len / s / 1e6)
+        log(f"[33] through mount 1: {file_bytes >> 20} MiB in write(2)s of "
+            f"{MOUNT_IO >> 20} MiB (WRITEs of {MOUNT_MAX_WRITE >> 10} KiB), fsync: "
+            f"{out['write_MB_s']:.1f} MB/s ({w:.2f} s); torch.save of "
+            f"{len(state)} tensors ({ckpt_len} B), fsync: {out['save_MB_s']:.1f} "
+            f"MB/s ({s:.2f} s); stat, listdir, rename, symlink, readlink and "
+            f"get-conf/attr_timeout = {conf}")
+
+        # (4) a fresh mount: a new superblock, so every byte comes through
+        # the daemon's READ handler
+        walls["unmount1"] = await stop_fuse_main(procs[0], mnts[0], outs[0])
+        procs.append(spawn_fuse_main(c.mgmtd_address, mnts[1], outs[1]))
+        walls["mount2"] = await wait_mounted(procs[1], mnts[1], outs[1])
+        d2 = f"{mnts[1]}/ckpt"
+
+        def read_through() -> tuple[float, int, bytes]:
+            order = rng.permutation(file_bytes // MOUNT_IO)
+            small = rng.integers(0, file_bytes - 4096, MOUNT_SMALL_READS)
+            fd = os.open(f"{d2}/data.bin", os.O_RDONLY)
+            try:
+                t = time.perf_counter()
+                bad = sum(os.pread(fd, MOUNT_IO, int(i) * MOUNT_IO)
+                          != data[int(i) * MOUNT_IO:(int(i) + 1) * MOUNT_IO]
+                          for i in order)
+                r = time.perf_counter() - t
+                bad += sum(os.pread(fd, 4096, int(o)) != data[int(o):int(o) + 4096]
+                           for o in small)
+            finally:
+                os.close(fd)
+            with open(f"{d2}/step-100.pt", "rb") as f:
+                ckpt = f.read()
+            return r, bad, ckpt
+        r, bad, ckpt = await asyncio.to_thread(read_through)
+        expect(bad == 0, f"[33] {bad} preads through mount 2 differ")
+        t = time.perf_counter()
+        loaded = await asyncio.to_thread(torch.load, f"{d2}/latest", map_location=dev)
+        walls.update(read=r, load=time.perf_counter() - t)
+        expect(sorted(loaded) == sorted(state) and all(
+            loaded[k].device.type == dev.type and loaded[k].dtype == v.dtype
+            and torch.equal(loaded[k].cpu(), v) for k, v in state.items()),
+            "[33] the checkpoint loaded through mount 2 differs")
+        out["read_MB_s"] = file_bytes / r / 1e6
+        log(f"[33] through mount 2 (fuse_main 2, pid {procs[1].pid}, "
+            f"{walls['mount2']:.2f} s to mount; mount 1 stopped by SIGTERM in "
+            f"{walls['unmount1']:.2f} s, exit 0, unmounted): {file_bytes >> 20} "
+            f"MiB in {file_bytes // MOUNT_IO} preads of 1 MiB in a seeded order, "
+            f"{out['read_MB_s']:.1f} MB/s ({r:.2f} s), and {MOUNT_SMALL_READS} "
+            f"seeded 4 KiB preads, every byte equal; torch.load(map_location="
+            f"{dev.type!r}) through the symlink in {walls['load']:.2f} s, every "
+            f"tensor equal")
+
+        # (5) every chunk of every replica, over the storage RPCs
+        mgmtd = MgmtdClient(c.mgmtd_address, refresh_period_s=0.2)
+        await mgmtd.start()
+        inos = {os.stat(f"{d2}/data.bin").st_ino: data,
+                os.stat(f"{d2}/step-100.pt").st_ino: ckpt}
+        t = time.perf_counter()
+        n = await dev_check_replicas(mgmtd, inos, c.replicas, phase=33)
+        walls["replicas"] = time.perf_counter() - t
+        log(f"[33] {n} stored chunks over {c.replicas} replicas read back over "
+            f"the wire: replicas equal, each checksum the host CRC of its bytes, "
+            f"both files' chunks their bytes ({walls['replicas']:.1f} s)")
+
+        # (6) the namespace through the mount, then meta's GC
+        t = time.perf_counter()
+        os.truncate(f"{d2}/data.bin", 10_000)
+        expect(os.stat(f"{d2}/data.bin").st_size == 10_000, "[33] truncate: size")
+        with open(f"{d2}/data.bin", "rb") as f:
+            expect(f.read() == data[:10_000], "[33] truncate: bytes")
+        for name in ("latest", "step-100.pt", "data.bin"):
+            os.unlink(f"{d2}/{name}")
+        os.rmdir(d2)
+        expect(os.listdir(mnts[1]) == [], f"[33] root not empty: {os.listdir(mnts[1])}")
+        while (left := await chunks_of(mgmtd, set(inos))) > 0:
+            expect(time.perf_counter() - t < 60.0,
+                   f"[33] meta's GC left {left} chunks after 60 s")
+            await asyncio.sleep(0.2)
+        walls["gc"] = time.perf_counter() - t
+        log(f"[33] truncate to 10000 B (length and bytes right), unlink, rmdir; "
+            f"meta's GC removed every chunk from every replica in "
+            f"{walls['gc']:.2f} s")
+        walls["unmount2"] = await stop_fuse_main(procs[1], mnts[1], outs[1])
+
+        # (7) meta_bench --fuse, a process of its own: its in-process
+        # cluster and kernel mount share that process's loop
+        t = time.perf_counter()
+        r = await asyncio.to_thread(
+            subprocess.run, [sys.executable, "-m", "t3fs_torch.benchmarks.meta_bench",
+                             *bench_args], capture_output=True, text=True,
+            timeout=300, cwd=run_dir, env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                filter(None, [HERE, os.environ.get("PYTHONPATH")]))))
+        walls["meta_bench"] = time.perf_counter() - t
+        expect(r.returncode == 0, f"[33] meta_bench --fuse: {r.stderr[-2000:]}")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        dirs, files = bench_shape
+        want = {"mkdir": dirs, "create": dirs * files, "stat": dirs * files,
+                "list": dirs, "rename": dirs * files, "remove": dirs * files}
+        expect(res["path"] == "fuse-kernel-mount" and res["total_files"] == dirs * files
+               and {p: res[p]["ops"] for p in want} == want,
+               f"[33] meta_bench --fuse counts: {res}")
+        log(f"[33] meta_bench --fuse ({walls['meta_bench']:.1f} s with the bench's "
+            f"start): {json.dumps(res)}")
+        out["meta_bench"] = {p: res[p]["ops_s"] for p in want}
+        out["bench_files"] = res["total_files"]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for mnt in mnts:
+            if os.path.ismount(mnt):
+                _libc.umount2(mnt.encode(), MNT_DETACH)
+        if mgmtd is not None:
+            await mgmtd.stop()
+        await c.stop()
+
+    # (8) B1 in each storage process, as each logged at its stop
+    counters = {}
+    for i in range(1, c.num_storage + 1):
+        got = read_codec_counters(c._path(f"storage{i}.log"))
+        expect(got is not None, f"[33] storage{i} logged no counters at its stop")
+        counters[i] = got
+    log("[33] per storage process (B1 batches, items, items a batch, B1 "
+        "launches): " + ", ".join(
+            f"storage{i} {v['batches']}, {v['batched_items']}, "
+            f"{v['batched_items'] / max(v['batches'], 1):.2f}, "
+            f"{v['crc_words_launches']}" for i, v in counters.items()))
+    if dev.type == "cuda":
+        need = file_bytes // MOUNT_MAX_WRITE
+        for i, v in counters.items():
+            expect(v["backend"] == "cuda" and v["batched_items"] >= need
+                   and v["crc_words_launches"] > 0,
+                   f"[33] storage{i}: fewer than {need} B1 items: {v}")
+    out["launches"] = {"crc_words": sum(v["crc_words_launches"]
+                                        for v in counters.values())}
+    return out
+
+
+def phase_mount(dev: torch.device, sharded: dict | None = None) -> dict:
+    """Phase 33 on `dev`; `sharded` is phase 29's meta_bench --mgmtd ops/s
+    of this run, printed beside meta_bench --fuse.  Returns the storage
+    processes' launches."""
+    import tempfile
+
+    from t3fs_torch.benchmarks.devbench import card_line
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="t3fs-mount-") as run_dir:
+        res = asyncio.run(phase_mount_session(dev, run_dir))
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log(f"[33] meta_bench ops/s: --fuse ({res['bench_files']} files as POSIX "
+        f"calls through the kernel mount) {res['meta_bench']}; phase 29's --mgmtd "
+        f"(meta RPCs over two kv_main shards) {sharded if sharded else 'not run'}")
+    log(f"[33] walls (s): " + ", ".join(f"{k} {v:.2f}" for k, v in res["walls"].items()))
+    log(f"[33] phase: {time.perf_counter() - t0:.1f} s on {card}; write "
+        f"{res['write_MB_s']:.1f} MB/s, read {res['read_MB_s']:.1f} MB/s through "
+        f"the mount; storage processes' launches {res['launches']}")
     return res["launches"]
 
 
@@ -5878,6 +6303,7 @@ def main(argv: list[str] | None = None) -> int:
         f"{AioReadWorker.available()}")
     log(f"[0] {shm_line()}")
     host_warnings()
+    fuse = fuse_probe()
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"[0] nvcc {name}: {line.strip()}")
@@ -5964,9 +6390,15 @@ def main(argv: list[str] | None = None) -> int:
     with wall(28):
         main_runs.append(phase_deployment(dev, config2))
     with wall(29):
-        main_runs.append(phase_sharded(dev))
+        sharded = phase_sharded(dev)
+    main_runs.append(sharded["launches"])
     with wall(32):
         main_runs.append(phase_operator(dev))
+    if fuse == "available":
+        with wall(33):
+            main_runs.append(phase_mount(dev, sharded["meta_bench"]))
+    else:
+        log(f"[33] not run: {fuse}")
     log(f"[15] phase walls (s) on {card}: " + ", ".join(
         f"{n} {w:.1f}" for n, w in sorted(walls.items()))
         + f"; all phases {sum(walls.values()):.1f}")

@@ -9,11 +9,18 @@ standard library only -- never jax, never `t3fs`.
 Every entry point takes `device=`, defaulting to "cuda".  Without a GPU the
 default raises; pass device="cpu" to run the plain PyTorch versions of the
 kernels (what the CPU tests do).
+
+Importing the package imports no torch: the processes that do no device
+work (mgmtd, meta, monitor, kv, migration, and fuse_main's mount) start
+without it.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -22,6 +29,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     A CUDA device without a GPU present is an error, never a silent fall
     back to the CPU: a storage node configured for the device codec must not
     quietly checksum on the host."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

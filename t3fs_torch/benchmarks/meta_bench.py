@@ -20,10 +20,13 @@ Phases (all ops/s, concurrency-C workers over D dirs x F files):
     python -m t3fs_torch.benchmarks.meta_bench --dirs 8 --files 64 --json
     python -m t3fs_torch.benchmarks.meta_bench --mgmtd HOST:PORT ...   (live cluster)
 
-The port of benchmarks/meta_bench.py: the same phases, flags and JSON keys.
-The in-process cluster's storage node runs on the card's B1, or with --cpu
-on the host CRC (metadata ops touch no chunk, so the phases are the same).
---fuse needs fuse/kernel.py, not ported yet: it raises NotImplementedError.
+    python -m t3fs_torch.benchmarks.meta_bench --fuse --json   (kernel mount, root)
+
+The port of benchmarks/meta_bench.py: the same phases, flags and JSON keys,
+--fuse included (the phases as POSIX syscalls through the port's kernel
+mount over an in-process cluster).  The in-process cluster's storage node
+runs on the card's B1, or with --cpu on the host CRC (metadata ops touch no
+chunk, so the phases are the same).
 """
 
 from __future__ import annotations
@@ -49,6 +52,99 @@ async def _run_phase(coros: list, concurrency: int) -> dict:
             "ops_s": round(len(coros) / dt, 1)}
 
 
+async def run_fuse_bench(args) -> dict:
+    """The same phases as POSIX syscalls through a real kernel mount
+    (mdtest proper).  Syscalls run on worker threads — they must never
+    run on the daemon's event loop (fuse/kernel.py module docstring)."""
+    import os
+    import tempfile
+
+    from t3fs_torch.fuse.kernel import FuseKernelMount
+    from t3fs_torch.testing.cluster import LocalCluster
+
+    cluster = LocalCluster(
+        num_nodes=1, replicas=1, with_meta=True,
+        checksum_backend="cpu" if getattr(args, "cpu", False) else "cuda")
+    tmp = tempfile.mkdtemp(prefix="t3fs-metabench-")
+    try:
+        await cluster.start()
+        mnt = os.path.join(tmp, "mnt")
+        os.makedirs(mnt)
+        fuse = FuseKernelMount(cluster.mc, cluster.sc, mnt)
+        await fuse.mount()
+    except BaseException:
+        # a failed mount (non-root, no /dev/fuse) must not leak the
+        # started cluster's tasks/sockets or the tmpdir
+        await cluster.stop()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+    D, F, C = args.dirs, args.files, args.concurrency
+    out: dict = {"dirs": D, "files_per_dir": F, "concurrency": C,
+                 "total_files": D * F, "path": "fuse-kernel-mount"}
+
+    def _mk(p):
+        os.mkdir(p)
+
+    def _create(p):
+        open(p, "w").close()
+
+    def _stat(p):
+        os.stat(p)
+
+    def _list(p):
+        os.listdir(p)
+
+    def _rename(pair):
+        os.rename(*pair)
+
+    def _rm(p):
+        os.remove(p)
+
+    def _renamed(p):
+        # rename only the BASENAME: a blanket p.replace("/f", "/r")
+        # would also rewrite tmpdir components containing "/f"
+        return os.path.join(os.path.dirname(p),
+                            "r" + os.path.basename(p)[1:])
+
+    # a dedicated executor sized to the requested concurrency:
+    # asyncio.to_thread rides the default pool (cpu+4 threads — 5 on a
+    # 1-CPU box), which would silently cap --concurrency 32 at 5
+    # in-flight syscalls and mislabel the result
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=C, thread_name_prefix="mdtest")
+    loop = asyncio.get_running_loop()
+
+    def phase(fn, items):
+        async def one(it):                 # lazy: starts under the sem,
+            await loop.run_in_executor(pool, fn, it)  # inside the timer
+        return _run_phase([one(it) for it in items], C)
+
+    try:
+        out["mkdir"] = await phase(
+            _mk, [f"{mnt}/d{d:03d}" for d in range(D)])
+        files = [f"{mnt}/d{d:03d}/f{f:04d}"
+                 for d in range(D) for f in range(F)]
+        out["create"] = await phase(_create, files)
+        out["stat"] = await phase(_stat, files)
+        out["list"] = await phase(
+            _list, [f"{mnt}/d{d:03d}" for d in range(D)])
+        out["rename"] = await phase(
+            _rename, [(p, _renamed(p)) for p in files])
+        out["remove"] = await phase(_rm, [_renamed(p) for p in files])
+        return out
+    finally:
+        # wait for in-flight syscalls: unmounting under them races EBUSY
+        # and would leak the mount + tmpdir on an error exit
+        await asyncio.to_thread(pool.shutdown, wait=True,
+                                cancel_futures=True)
+        await fuse.unmount()
+        await cluster.stop()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 async def run_bench(args) -> dict:
     if getattr(args, "fuse", False):
         if args.mgmtd:
@@ -56,10 +152,8 @@ async def run_bench(args) -> dict:
                 "--fuse benchmarks an in-process cluster's kernel mount; "
                 "combining it with --mgmtd would silently measure the "
                 "wrong cluster (mount against a live cluster with "
-                "a fuse_main mount and run mdtest on that mountpoint)")
-        raise NotImplementedError(
-            "meta_bench --fuse drives a kernel mount through fuse/kernel.py, "
-            "which is not ported yet (ROADMAP A12g)")
+                "t3fs_torch.app.fuse_main and run mdtest on that mountpoint)")
+        return await run_fuse_bench(args)
     if args.mgmtd:
         from t3fs_torch.benchmarks._env import make_meta_env
         mc, stop = await make_meta_env(args.mgmtd)
@@ -113,7 +207,7 @@ def parse_args(argv=None):
                          "meta RPC client — measures the full "
                          "syscall->kernel->daemon->meta path")
     ap.add_argument("--cpu", action="store_true",
-                    help="in-process cluster: the storage node checksums on "
+                    help="in-process cluster (--fuse too): the storage node checksums on "
                          "the host CRC instead of the card's B1")
     ap.add_argument("--dirs", type=int, default=8)
     ap.add_argument("--files", type=int, default=64)

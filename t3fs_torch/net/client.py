@@ -15,7 +15,7 @@ from typing import Any
 
 from t3fs_torch.net.conn import Connection
 from t3fs_torch.net.rpcstats import READ_STATS
-from t3fs_torch.net.server import build_dispatcher
+from t3fs_torch.net.server import build_dispatcher, refuse_native_net
 from t3fs_torch.utils import tracing
 from t3fs_torch.utils.status import StatusCode, make_error
 
@@ -50,6 +50,7 @@ class Client:
             conn = self._conns.get(address)
             if conn is not None and not conn.closed:
                 return conn
+            refuse_native_net()
             host, port = address.rsplit(":", 1)
             try:
                 reader, writer = await asyncio.wait_for(

@@ -10,11 +10,24 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from typing import Any
 
 from t3fs_torch.net.conn import Connection, Handler
 
 log = logging.getLogger("t3fs_torch.net")
+
+
+def refuse_native_net() -> None:
+    """Raise while T3FS_NATIVE_NET=1.  The reference reads that switch per
+    connection (t3fs/net/native_conn.py native_enabled) and then runs its
+    io_uring frame pump; the port has no pump yet, so it refuses the switch
+    rather than run its asyncio transport under it."""
+    if os.environ.get("T3FS_NATIVE_NET") == "1":
+        raise NotImplementedError(
+            "T3FS_NATIVE_NET=1 asks for the io_uring frame pump "
+            "(net/native_conn.py), which the port has not ported yet "
+            "(ROADMAP A12d)")
 
 
 def rpc_method(fn):
@@ -59,6 +72,7 @@ class Server:
         self.dispatcher.update(build_dispatcher(svc))
 
     async def start(self) -> None:
+        refuse_native_net()
         self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]
         log.info("server listening on %s:%d (%d methods)",

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_fuse_mounts import needs_fuse
 
 ROOT = Path(__file__).resolve().parent.parent
 SMOKE = str(ROOT / "configs" / "soak_smoke.toml")
@@ -51,7 +52,8 @@ for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worke
             "analysis", "analysis.engine", "analysis.rules", "cli.admin",
             "soak.spec", "soak.drivers", "soak.faults", "soak.harvest",
             "soak.runner", "benchmarks.soak_bench", "benchmarks.health_bench",
-            "utils.trash", "client.storage_client_inmem"):
+            "utils.trash", "client.storage_client_inmem", "fuse.kernel",
+            "fuse.user_config", "app.fuse_main"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -113,9 +115,9 @@ def _entry_points():
     from t3fs_torch import bench, graft_entry, resolve_device
     from t3fs_torch.benchmarks import (
         ckpt_bench, codec_economics, devbench, health_bench, kvcache_bench,
-        kvcache_fleet_bench, kvcache_scale_bench, rebalance_drill_bench,
-        repair_drill_bench, health_smoke, soak_bench, sort_bench,
-        storage_bench, usrbio_bench)
+        kvcache_fleet_bench, kvcache_scale_bench, meta_bench,
+        rebalance_drill_bench, repair_drill_bench, health_smoke, soak_bench,
+        sort_bench, storage_bench, usrbio_bench)
     from t3fs_torch.benchmarks import ec_recovery_bench as ecb
     from t3fs_torch.cli import admin
     from t3fs_torch.client.ec_client import ECStorageClient
@@ -241,14 +243,18 @@ def _entry_points():
         # command through main without --cpu (no address is ever dialled)
         lambda: admin.AdminContext("127.0.0.1:1").ec_codec(),
         lambda: admin.main(["--meta", "127.0.0.1:1", "ckpt-verify", "/c"]),
+        # meta_bench --fuse without --cpu: its in-process cluster's storage
+        # node on the CUDA backend (raises before any mount)
+        lambda: asyncio.run(meta_bench.run_bench(meta_bench.parse_args(
+            ["--fuse"]))),
     ]
 
 
-@pytest.mark.parametrize("i", range(81))
+@pytest.mark.parametrize("i", range(82))
 def test_entry_points_default_to_cuda_and_raise_without_gpu(i, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     entries = _entry_points()
-    assert len(entries) == 81
+    assert len(entries) == 82
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entries[i]()
 
@@ -384,26 +390,122 @@ def test_admin_cli_main_needs_no_gpu(monkeypatch, capsys):
         admin.main(["--cpu", "--meta", "127.0.0.1:1", "ckpt-verify", "/c"])
 
 
-def test_port_refuses_what_it_has_not_ported():
-    """What the port has not ported raises, never runs something else:
-    meta_bench's kernel-mount mode needs fuse/kernel.py.  The ring data
-    plane is ported: asking for it builds a client on that plane.  (The
-    replicated and sharded KV are ported too: tests/test_torch_wal_kv.py
-    opens open_kv_engine's "remote:" and "shards:" specs, and
-    tests/test_torch_mgmtd.py and tests/test_torch_app_cluster.py start
-    LocalCluster and DevCluster over them.)"""
+def test_port_refuses_what_it_has_not_ported(monkeypatch):
+    """What the port has not ported raises, never runs something else: with
+    T3FS_NATIVE_NET=1 the reference runs its io_uring frame pump
+    (net/native_conn.py), which the port has not ported (ROADMAP A12d), so
+    the port's server start and client connect raise, each read per
+    connection as the reference reads the switch.  The ring data plane is
+    ported: asking for it builds a client on that plane.  (The kernel FUSE
+    mount is ported too: tests/test_torch_meta_bench.py runs meta_bench
+    --fuse, tests/test_torch_fuse_*.py the mount and fuse_main.)"""
     import asyncio
 
-    from t3fs_torch.benchmarks import meta_bench
     from t3fs_torch.client.storage_client import (
         StorageClient, StorageClientConfig)
+    from t3fs_torch.core.service import AppInfo, CoreService
+    from t3fs_torch.kv.engine import MemKVEngine
+    from t3fs_torch.net.client import Client
+    from t3fs_torch.net.server import Server
 
-    with pytest.raises(NotImplementedError, match="A12g"):
-        asyncio.run(meta_bench.run_bench(meta_bench.parse_args(["--fuse"])))
+    async def body():
+        srv = Server()
+        srv.add_service(CoreService(AppInfo(1, "core", ""), kv=MemKVEngine()))
+        await srv.start()
+        cli = Client()
+        try:
+            await cli.call(srv.address, "Core.getAppInfo")
+            monkeypatch.setenv("T3FS_NATIVE_NET", "1")
+            # a connection made before the switch stays as it was
+            await cli.call(srv.address, "Core.getAppInfo")
+            with pytest.raises(NotImplementedError, match="A12d"):
+                await Server().start()
+            fresh = Client()
+            with pytest.raises(NotImplementedError, match="A12d"):
+                await fresh.call(srv.address, "Core.getAppInfo")
+            assert not fresh._conns
+            monkeypatch.setenv("T3FS_NATIVE_NET", "0")
+            await fresh.call(srv.address, "Core.getAppInfo")
+            await fresh.close()
+        finally:
+            await cli.close()
+            await srv.stop()
+
+    asyncio.run(body())
     sc = StorageClient(lambda: None,
                        config=StorageClientConfig(data_plane="ring"))
     assert sc.cfg.data_plane == "ring" and sc._ring_state == {
         "ring": None, "failed": False}
+
+
+@needs_fuse
+def test_fuse_main_and_mount_do_no_cuda_work(tmp_path, monkeypatch):
+    """fuse_main is a client process, as the reference's is: its config, its
+    mgmtd, meta and storage clients, the group resolver and the kernel
+    mount, mounted and answering POSIX calls, never touch torch.cuda (each
+    entry to it raises here, after the cluster under the mount started)."""
+    import asyncio
+
+    from t3fs_torch.app import fuse_main
+    from t3fs_torch.app.base import parse_overrides
+    from t3fs_torch.client.meta_client import MetaClient
+    from t3fs_torch.client.mgmtd_client import MgmtdClient
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.fuse.kernel import FuseKernelMount, registry_group_resolver
+    from t3fs_torch.fuse.user_config import MountUserConfig
+    from t3fs_torch.testing.cluster import LocalCluster
+
+    mnt = tmp_path / "mnt"
+    mnt.mkdir()
+
+    def no_cuda(*a, **k):
+        raise AssertionError("torch.cuda touched")
+
+    async def body():
+        c = LocalCluster(num_nodes=1, replicas=1, with_meta=True,
+                         heartbeat_timeout_s=60.0, checksum_backend="cpu")
+        await c.start()
+        try:
+            for name in ("is_available", "_lazy_init", "init", "device_count",
+                         "current_device", "synchronize"):
+                monkeypatch.setattr(torch.cuda, name, no_cuda)
+            cfg = fuse_main.FuseMainConfig()
+            cfg.update(parse_overrides([
+                f"mgmtd_address={c.mgmtd_rpc.address}",
+                f"mountpoint={mnt}"]), hot_only=False)
+            cfg.validate()
+            mgmtd = MgmtdClient(cfg.mgmtd_address, client_id="fuse-hyg")
+            await mgmtd.start()
+            sc = StorageClient(mgmtd.routing,
+                               config=cfg.storage.client_config(),
+                               refresh_routing=mgmtd.refresh)
+            mc = MetaClient([c.meta_rpc.address], client_id="fuse-hyg")
+            fuse = FuseKernelMount(
+                mc, sc, str(mnt), client_id="fuse-hyg",
+                max_write=cfg.max_write,
+                group_resolver=registry_group_resolver(cfg.mgmtd_address,
+                                                       mgmtd.client),
+                user_config=MountUserConfig(attr_timeout=cfg.attr_timeout))
+            try:
+                await fuse.mount()
+
+                def posix():
+                    with open(mnt / "f", "wb") as f:
+                        f.write(b"z" * 100_000)
+                    return (mnt / "f").read_bytes(), os.listdir(mnt)
+                data, names = await asyncio.to_thread(posix)
+                assert data == b"z" * 100_000 and names == ["f"]
+            finally:
+                await fuse.unmount()
+                await sc.close()
+                await mc.close_conn()
+                await mgmtd.stop()
+        finally:
+            monkeypatch.undo()
+            await c.stop()
+
+    asyncio.run(body())
+    assert not os.path.ismount(mnt)
 
 
 def _imported_modules(out_path: Path) -> set[str]:
