@@ -9,11 +9,14 @@ every kernel.
 Phases (any failure exits non-zero; nothing is caught into "ok"):
   0  report the card; build the kernels from t3fs_torch/csrc (into the
      ignored t3fs_torch/_build/) and print the build time; the host library
-     (chunk engine, host CRC, io_uring reader, usrbio rings), /dev/shm's
+     (chunk engine, host CRC, io_uring reader, usrbio rings, frame pump), /dev/shm's
      size, and usrbio.cpp through g++ -Wall -Wextra without a warning; the
      FUSE probe (the effective uid, /dev/fuse, the errno of opening it and
      of one trial mount(2) of fuse.t3fs with FuseKernelMount's options):
-     "available" or "refused" with the first failing call
+     "available" or "refused" with the first failing call; the native
+     transport's probe (one NativePump over csrc/net_pump.cpp in a
+     throwaway loop): "available" or "refused" with t3fs_pump_create's
+     errno (a failed build fails the script)
   1  B1 (CRC words) against its plain PyTorch version: random segments
      (4096 rows, and ragged 16-row units: 1, 7, 1001 rows), every run
      length 1..16 (chunks of 1..17, 24, 40 segments), 4 MiB chunks x 64, the
@@ -362,6 +365,18 @@ Phases (any failure exits non-zero; nothing is caught into "ok"):
      WRITE payload on each replica); prints each step's wall, the MB/s
      through the mount, B1 batches, items and launches a storage process
      (the launches added to the kernels line) and meta_bench's JSON
+ 34  the native io_uring transport (T3FS_NATIVE_NET=1).  When phase 0's
+     probe says it is available: a one-loop StorageFabric of 3 nodes with a
+     CudaChecksumBackend each writes and reads a seeded 64 MiB file in
+     4 MiB chunks over 3 replicas, first over the pump and then over
+     asyncio; every byte read back, every replica's ChunkMeta CRC equal to
+     plain B1 on the same bytes, every connection of the transport asked
+     for; prints the pump's counters (rx_frames and tx_zc_bytes > 0), B1
+     items a node and both transports' walls.  Else "[34] not run: <the
+     probe's answer>", then Server().start() under the switch must raise
+     OSError within 2 s and a Client call RPC_CONNECT_FAILED, and with the
+     switch unset the same client's call to the same (asyncio) server
+     answers
  15  each phase's wall, the kernels line, the card line, then the ok line
      last (with --rebalance-drill or --soak, a line of each run's gates
      instead)
@@ -378,7 +393,8 @@ its fabric's start and warmup, phase 26's usrbio_bench runs (a and b) and
 its riders after their cluster's start and warmups, each run of phase 27's
 parts, 27d's before its microbench; phase 28's, 29's, 32's and 33's storage
 processes each start at 0 and log their count at their stop, and phase
-32's session in this process after its warm-ups; phase 30's drill, both
+32's session in this process after its warm-ups; each transport's run of
+phase 34 after its fabric's start and warm-up; phase 30's drill, both
 cells from their clusters' start; phase 31's cells, each from its
 runner's warm-up) and read just after; launches
 made to compare a kernel with its plain version (phases 1, 2, 5, 6, 10, 11,
@@ -411,6 +427,7 @@ SHARD_BYTES = 1 << 20          # stripe write: 1 MiB shards, 12 stripes a step
 STRIPES = 12
 CHUNK_BYTES = 4 << 20          # storage write: 4 MiB chunks, 64 a batch
 CHAIN_FILE_BYTES = 512 << 20   # phase 21: one file, 128 chunks over 3 replicas
+NET_FILE_BYTES = 64 << 20      # phase 34: one file, 16 chunks over 3 replicas a transport
 CHUNKS = 64
 SUBSHARDS = 4                  # ec_client.subshard_r(1 MiB): 4 x 256 KiB reads
 LOST_CHUNKS = 24               # repair: 24 lost chunks -> 96 sub-shard repairs
@@ -5771,6 +5788,213 @@ def phase_mount(dev: torch.device, sharded: dict | None = None) -> dict:
     return res["launches"]
 
 
+# --- phase 34: the native io_uring transport -----------------------------------
+
+def net_probe() -> str:
+    """Phase 0's probe of the native transport: the host library built
+    with csrc/net_pump.cpp (a failed build raises, and fails the script),
+    then one NativePump in a throwaway event loop.  Logs one line; returns
+    "available" or "refused: t3fs_pump_create <errno name>" (the errno read
+    through a second handle on the same library that keeps errno)."""
+    import ctypes
+    import errno
+
+    from t3fs_torch.net.native_conn import NativePump
+    from t3fs_torch.ops import _build
+
+    _build.host_library()
+
+    async def trial() -> None:
+        NativePump.get().destroy()
+
+    try:
+        asyncio.run(trial())
+        answer = "available"
+    except OSError:
+        lib = ctypes.CDLL(str(_build._host_target()), use_errno=True)
+        lib.t3fs_pump_create.restype = ctypes.c_void_p
+        lib.t3fs_pump_create.argtypes = [ctypes.c_uint]
+        lib.t3fs_pump_destroy.argtypes = [ctypes.c_void_p]
+        h = lib.t3fs_pump_create(1024)
+        e = ctypes.get_errno()
+        if h:
+            lib.t3fs_pump_destroy(h)
+        answer = (f"refused: t3fs_pump_create "
+                  f"{errno.errorcode.get(e, str(e)) if not h else 'only on retry'}")
+    log(f"[0] native net: {answer}")
+    return answer
+
+
+@contextlib.contextmanager
+def native_net(on: bool):
+    """T3FS_NATIVE_NET set to 1 or unset for the block, then as it was."""
+    before = os.environ.get("T3FS_NATIVE_NET")
+    if on:
+        os.environ["T3FS_NATIVE_NET"] = "1"
+    else:
+        os.environ.pop("T3FS_NATIVE_NET", None)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("T3FS_NATIVE_NET", None)
+        else:
+            os.environ["T3FS_NATIVE_NET"] = before
+
+
+async def phase_net_chain(dev: torch.device, native: bool, file_bytes: int,
+                          chunk_bytes: int) -> dict:
+    """One transport's pass of phase 34: StorageFabric(3 nodes, 3 replicas)
+    with a CudaChecksumBackend a node on `dev`, started under the switch as
+    asked; write_file_range of one seeded file, read_file_range of it;
+    every connection of the transport asked for; every byte back; every
+    replica's ChunkMeta CRC equal to plain B1 on the same bytes.  Returns
+    the walls, B1 items a node, the pump's counters and the launches."""
+    from t3fs_torch.client.layout import FileLayout
+    from t3fs_torch.client.storage_client import StorageClient
+    from t3fs_torch.net.native_conn import NativeConnection, NativePump
+    from t3fs_torch.ops import cuda_codec as cc
+    from t3fs_torch.storage.codec_backend import CudaChecksumBackend
+    from t3fs_torch.storage.types import ChunkId
+    from t3fs_torch.testing.fabric import StorageFabric
+
+    data = np.random.default_rng(SEED + 34).bytes(file_bytes)
+    fabric = StorageFabric(num_nodes=3, replicas=3,
+                           checksum_backend=lambda: CudaChecksumBackend(device=dev))
+    await fabric.start()
+    sc = StorageClient(lambda: fabric.routing, client=fabric.client)
+    try:
+        for node in fabric.nodes:
+            await asyncio.to_thread(node.codec.warmup, [chunk_bytes])
+        lay = FileLayout(chunk_size=chunk_bytes, chains=[fabric.chain_id])
+        cc.reset_launches()
+        t0 = time.perf_counter()
+        results = await sc.write_file_range(lay, inode=34, offset=0, data=data)
+        write_s = time.perf_counter() - t0
+        expect(all(r.status.code == 0 for r in results),
+               f"[34] a chunk write failed: {[r.status for r in results if r.status.code][:3]}")
+        t1 = time.perf_counter()
+        got, _ = await sc.read_file_range(lay, 34, 0, file_bytes)
+        read_s = time.perf_counter() - t1
+        launches = dict(cc.launches)
+        expect(got == data, f"[34] native={native}: the file read back differs")
+        conns = [c for srv in fabric.servers for c in srv._conns]
+        conns += list(fabric.client._conns.values())
+        expect(conns and all(isinstance(c, NativeConnection) == native
+                             for c in conns),
+               f"[34] native={native}: connections {sorted({type(c).__name__ for c in conns})}")
+        chunks = [data[i:i + chunk_bytes] for i in range(0, file_bytes, chunk_bytes)]
+        b1 = plain_crcs(chunks, dev)
+        for i, node in enumerate(fabric.nodes):
+            engine = node.targets[fabric.target_id(i)].engine
+            for idx, crc in enumerate(b1):
+                meta = engine.get_meta(ChunkId(34, idx))
+                expect(meta is not None and meta.checksum == crc
+                       and meta.length == len(chunks[idx]),
+                       f"[34] native={native} node {i + 1} chunk {idx}: stored "
+                       f"{meta and meta.checksum:#x} != plain B1 {crc:#x}")
+        items = [n.codec.batched_items for n in fabric.nodes]
+        pump = NativePump.get().stats() if native else None
+        return {"write_s": write_s, "read_s": read_s, "items": items,
+                "pump": pump, "launches": launches}
+    finally:
+        await sc.close()
+        await fabric.stop()
+
+
+def phase_net(dev: torch.device, file_bytes: int = NET_FILE_BYTES,
+              chunk_bytes: int = CHUNK_BYTES) -> dict:
+    """Phase 34 where the probe said "available": the chain write and read
+    over the pump, then over asyncio.  Returns both runs' launches."""
+    from t3fs_torch.benchmarks.devbench import card_line
+
+    runs = {}
+    for native in (True, False):
+        with native_net(native):
+            runs[native] = asyncio.run(phase_net_chain(dev, native, file_bytes,
+                                                       chunk_bytes))
+    pump = runs[True]["pump"]
+    expect(pump["rx_frames"] > 0 and pump["tx_zc_bytes"] > 0,
+           f"[34] the pump moved no frame or no zero-copy byte: {pump}")
+    n = file_bytes // chunk_bytes
+    for native, r in runs.items():
+        expect(all(it >= n for it in r["items"]) or dev.type != "cuda",
+               f"[34] native={native}: B1 items a node {r['items']} < {n} chunks")
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log(f"[34] pump counters: {pump}")
+    for native, r in runs.items():
+        log(f"[34] {'pump' if native else 'asyncio'}: {file_bytes / (1 << 20):g} MiB in "
+            f"{n} x {chunk_bytes / (1 << 20):g} MiB chunks over 3 replicas, write "
+            f"{r['write_s']:.3f} s ({file_bytes / r['write_s'] / 1e6:.1f} MB/s), "
+            f"read {r['read_s']:.3f} s ({file_bytes / r['read_s'] / 1e6:.1f} MB/s) "
+            f"(host clock, on {card}); B1 items a node {r['items']}, launches "
+            f"{r['launches'].get('crc_words', 0)}; every byte back, every "
+            f"replica's CRC equal to plain B1")
+    total: dict = {}
+    for r in runs.values():
+        add_launches(total, r["launches"])
+    return total
+
+
+async def net_refused_session() -> dict:
+    """Phase 34 where the probe said "refused": under T3FS_NATIVE_NET=1
+    Server().start() raises OSError within 2 s and a Client call raises
+    RPC_CONNECT_FAILED; with the switch unset the same client's call to the
+    same asyncio server answers."""
+    from t3fs_torch.core.service import AppInfo, CoreService
+    from t3fs_torch.kv.engine import MemKVEngine
+    from t3fs_torch.net.client import Client
+    from t3fs_torch.net.conn import Connection
+    from t3fs_torch.net.server import Server
+    from t3fs_torch.utils.status import StatusCode, StatusError
+
+    with native_net(False):
+        srv = Server()
+        srv.add_service(CoreService(AppInfo(1, "core", ""), kv=MemKVEngine()))
+        await srv.start()
+    cli = Client()
+    try:
+        with native_net(True):
+            native = Server()
+            t0 = time.perf_counter()
+            try:
+                await native.start()
+            except OSError as e:
+                start_s, err = time.perf_counter() - t0, e
+            else:
+                await native.stop()
+                raise AssertionError("[34] Server.start under T3FS_NATIVE_NET=1 "
+                                     "ran where the pump was refused")
+            expect(start_s < 2.0 and native._lsock is None,
+                   f"[34] Server.start took {start_s:.3f} s to raise, or listened")
+            try:
+                await cli.call(srv.address, "Core.getAppInfo")
+            except StatusError as e:
+                code = e.code
+            else:
+                raise AssertionError("[34] a Client call ran under T3FS_NATIVE_NET=1 "
+                                     "where the pump was refused")
+            expect(code == StatusCode.RPC_CONNECT_FAILED,
+                   f"[34] the refused connect gave {code!r}")
+        with native_net(False):
+            rsp, _ = await cli.call(srv.address, "Core.getAppInfo")
+            expect(type(cli._conns[srv.address]) is Connection
+                   and rsp.info.node_id == 1, "[34] the asyncio call after the switch")
+        return {"start_s": start_s, "error": str(err), "code": code.name}
+    finally:
+        await cli.close()
+        await srv.stop()
+
+
+def phase_net_refused(reason: str) -> None:
+    log(f"[34] not run: {reason}")
+    r = asyncio.run(net_refused_session())
+    log(f"[34] under T3FS_NATIVE_NET=1: Server.start raised OSError "
+        f"({r['error']}) in {r['start_s'] * 1e3:.1f} ms without listening, a "
+        f"Client call raised {r['code']}; with the switch unset the same "
+        f"client's asyncio call answered")
+
+
 # --- phase 30: elastic membership under live traffic --------------------------
 
 _replace_at = contextvars.ContextVar("replace_at", default=None)
@@ -6296,14 +6520,17 @@ def main(argv: list[str] | None = None) -> int:
     from t3fs_torch.storage.aio import AioReadWorker
     t0 = time.perf_counter()
     expect(host_impl() == "native", "the native host library (csrc/chunk_engine.cpp, "
-           "csrc/aio_reader.cpp) did not build or its CRC failed the self-check")
-    log(f"[0] native host library: chunk engine, host CRC, io_uring reader and "
-        f"usrbio rings (chunk_engine.cpp, aio_reader.cpp, usrbio.cpp, g++): "
+           "csrc/aio_reader.cpp, csrc/usrbio.cpp, csrc/net_pump.cpp) did not build "
+           "or its CRC failed the self-check")
+    log(f"[0] native host library: chunk engine, host CRC, io_uring reader, "
+        f"usrbio rings and frame pump (chunk_engine.cpp, aio_reader.cpp, usrbio.cpp, "
+        f"net_pump.cpp, g++): "
         f"{time.perf_counter() - t0:.1f} s; io_uring available: "
         f"{AioReadWorker.available()}")
     log(f"[0] {shm_line()}")
     host_warnings()
     fuse = fuse_probe()
+    net = net_probe()
     for name, text in _build.build_logs.items():
         for line in text.strip().splitlines():
             log(f"[0] nvcc {name}: {line.strip()}")
@@ -6399,6 +6626,11 @@ def main(argv: list[str] | None = None) -> int:
             main_runs.append(phase_mount(dev, sharded["meta_bench"]))
     else:
         log(f"[33] not run: {fuse}")
+    with wall(34):
+        if net == "available":
+            main_runs.append(phase_net(dev))
+        else:
+            phase_net_refused(net)
     log(f"[15] phase walls (s) on {card}: " + ", ".join(
         f"{n} {w:.1f}" for n, w in sorted(walls.items()))
         + f"; all phases {sum(walls.values()):.1f}")

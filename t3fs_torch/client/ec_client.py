@@ -608,7 +608,9 @@ class ECStorageClient:
                 # the device CRC covers the full chunk: it matches the
                 # stored-content CRC only for untrimmed shards
                 crcs[j] = rc if lens[j] == cs else None
-        return (b"".join(chunks[j][: lens[j]].ljust(lens[j], b"\x00")
+        # bytes(): over the native transport a shard read arrives as a
+        # memoryview of the pump's buffer, which has no ljust
+        return (b"".join(bytes(chunks[j][: lens[j]]).ljust(lens[j], b"\x00")
                          for j in range(k) if lens[j]),
                 [crcs.get(j) for j in range(k)])
 

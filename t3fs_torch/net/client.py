@@ -15,7 +15,7 @@ from typing import Any
 
 from t3fs_torch.net.conn import Connection
 from t3fs_torch.net.rpcstats import READ_STATS
-from t3fs_torch.net.server import build_dispatcher, refuse_native_net
+from t3fs_torch.net.server import build_dispatcher
 from t3fs_torch.utils import tracing
 from t3fs_torch.utils.status import StatusCode, make_error
 
@@ -50,7 +50,20 @@ class Client:
             conn = self._conns.get(address)
             if conn is not None and not conn.closed:
                 return conn
-            refuse_native_net()
+            from t3fs_torch.net.native_conn import native_connect, native_enabled
+            if native_enabled():
+                try:
+                    conn = await asyncio.wait_for(
+                        native_connect(address, self.dispatcher,
+                                       f"cli->{address}",
+                                       self.compress_threshold),
+                        self.connect_timeout)
+                except (OSError, asyncio.TimeoutError) as e:
+                    raise make_error(StatusCode.RPC_CONNECT_FAILED,
+                                     f"connect {address}: {e}") from None
+                self._conns[address] = conn
+                self._epochs[address] = self._epochs.get(address, 0) + 1
+                return conn
             host, port = address.rsplit(":", 1)
             try:
                 reader, writer = await asyncio.wait_for(

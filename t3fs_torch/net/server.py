@@ -10,24 +10,11 @@ from __future__ import annotations
 
 import asyncio
 import logging
-import os
 from typing import Any
 
 from t3fs_torch.net.conn import Connection, Handler
 
 log = logging.getLogger("t3fs_torch.net")
-
-
-def refuse_native_net() -> None:
-    """Raise while T3FS_NATIVE_NET=1.  The reference reads that switch per
-    connection (t3fs/net/native_conn.py native_enabled) and then runs its
-    io_uring frame pump; the port has no pump yet, so it refuses the switch
-    rather than run its asyncio transport under it."""
-    if os.environ.get("T3FS_NATIVE_NET") == "1":
-        raise NotImplementedError(
-            "T3FS_NATIVE_NET=1 asks for the io_uring frame pump "
-            "(net/native_conn.py), which the port has not ported yet "
-            "(ROADMAP A12d)")
 
 
 def rpc_method(fn):
@@ -67,16 +54,72 @@ class Server:
         self.dispatcher: dict[str, Handler] = {}
         self._server: asyncio.AbstractServer | None = None
         self._conns: set[Connection] = set()
+        self._lsock = None                    # native-transport listener
+        self._accept_task: asyncio.Task | None = None
 
     def add_service(self, svc: Any) -> None:
         self.dispatcher.update(build_dispatcher(svc))
 
     async def start(self) -> None:
-        refuse_native_net()
+        from t3fs_torch.net.native_conn import native_enabled
+        if native_enabled():
+            await self._start_native()
+            return
         self._server = await asyncio.start_server(self._on_conn, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]
         log.info("server listening on %s:%d (%d methods)",
                  self.host, self.port, len(self.dispatcher))
+
+    async def _start_native(self) -> None:
+        """Accept on a raw socket and hand every connection to the
+        io_uring frame pump (net/native_conn.py) — accepting via
+        asyncio streams and stealing the fd would race the transport's
+        first read."""
+        import socket as _socket
+
+        from t3fs_torch.net.native_conn import NativePump
+        # fail FAST if io_uring is unavailable (e.g. a seccomp profile
+        # blocking it): raising here surfaces at Server.start() instead
+        # of killing the accept loop on the first inbound connection
+        NativePump.get()
+        s = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+        s.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+        s.bind((self.host, self.port))
+        s.listen(256)
+        s.setblocking(False)
+        self._lsock = s
+        self.port = s.getsockname()[1]
+        self._accept_task = asyncio.create_task(
+            self._accept_loop(), name=f"accept-{self.port}")
+        log.info("server (native transport) listening on %s:%d (%d methods)",
+                 self.host, self.port, len(self.dispatcher))
+
+    async def _accept_loop(self) -> None:
+        import socket as _socket
+
+        from t3fs_torch.net.native_conn import NativeConnection, NativePump
+        loop = asyncio.get_running_loop()
+        while True:
+            try:
+                sock, peer = await loop.sock_accept(self._lsock)
+            except asyncio.CancelledError:
+                return          # stop() cancelled the accept loop
+            except OSError:
+                return          # listener closed under us
+            try:
+                sock.setsockopt(_socket.IPPROTO_TCP,
+                                _socket.TCP_NODELAY, 1)
+                conn = NativeConnection(
+                    sock, NativePump.get(), self.dispatcher,
+                    name=f"srv<-{peer}", on_close=self._conns.discard,
+                    compress_threshold=self.compress_threshold)
+                conn.local_address = self.address
+                self._conns.add(conn)
+                conn.start()
+            except Exception:
+                # a per-connection failure must not kill the listener
+                log.exception("native accept of %s failed", peer)
+                sock.close()
 
     async def _on_conn(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         peer = writer.get_extra_info("peername")
@@ -94,6 +137,14 @@ class Server:
         # closed, so the old order deadlocks while clients stay connected
         if self._server:
             self._server.close()
+        if self._accept_task is not None:
+            self._accept_task.cancel()
+            try:
+                await self._accept_task
+            except asyncio.CancelledError:
+                pass
+        if self._lsock is not None:
+            self._lsock.close()
         # drain until empty: a connection accepted during shutdown may be
         # registered after a one-shot snapshot would have been taken
         while self._conns:

@@ -7,10 +7,11 @@ headers and the flags, so an edited source or header rebuilds and an
 unchanged one loads.  All missing libraries compile in parallel, one nvcc
 each.  The one host library is built the same way by the host compiler
 (host_library): the native chunk engine with the host CRC32C, the
-io_uring read engine and the usrbio shm rings (csrc/chunk_engine.cpp,
-csrc/aio_reader.cpp and csrc/usrbio.cpp, with the flags of the reference's
-t3fs/native/build.py).  Nothing here runs at
-import.
+io_uring read engine, the usrbio shm rings and the io_uring frame pump of
+the native transport (csrc/chunk_engine.cpp, csrc/aio_reader.cpp,
+csrc/usrbio.cpp and csrc/net_pump.cpp, with the flags of the reference's
+t3fs/native/build.py, its sanitizer switch T3FS_SANITIZE included).
+Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -31,13 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 HOST_LIB = "native_storage"
-HOST_SOURCES = ("chunk_engine.cpp", "aio_reader.cpp", "usrbio.cpp")
+HOST_SOURCES = ("chunk_engine.cpp", "aio_reader.cpp", "usrbio.cpp",
+                "net_pump.cpp")
 HOST_CXX_FLAGS = ("-std=c++20", "-O2", "-fPIC", "-shared", "-pthread",
                   *(("-msse4.2",) if platform.machine() in ("x86_64", "AMD64")
                     else ()))
 # linked with -lrt as t3fs/native/build.py links it: shm_open and shm_unlink
 # (usrbio.cpp) live in librt before glibc 2.34
 HOST_LDFLAGS = ("-lrt",)
+SANITIZERS = ("thread", "address")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -146,12 +149,31 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+def host_flags() -> tuple[tuple[str, ...], str]:
+    """The host compiler's flags and the host library's name, from
+    T3FS_SANITIZE: unset or empty gives HOST_CXX_FLAGS; "thread" or
+    "address" builds at -O1 with that sanitizer and frame pointers, under a
+    name of its own (python itself is not instrumented, so the process needs
+    the sanitizer's runtime loaded first:
+    LD_PRELOAD=$(g++ -print-file-name=libtsan.so)).  Any other value raises
+    rather than build an uninstrumented library under a sanitizer run."""
+    mode = os.environ.get("T3FS_SANITIZE", "")
+    if not mode:
+        return HOST_CXX_FLAGS, HOST_LIB
+    if mode not in SANITIZERS:
+        raise ValueError(f"T3FS_SANITIZE={mode!r}: use 'thread' or 'address'")
+    flags = tuple("-O1" if f == "-O2" else f for f in HOST_CXX_FLAGS)
+    return ((*flags, f"-fsanitize={mode}", "-fno-omit-frame-pointer"),
+            f"{HOST_LIB}.{mode[0]}san")
+
+
 def _host_target() -> Path:
+    flags, name = host_flags()
     h = hashlib.sha256()
     for src in HOST_SOURCES:
         h.update((SRC_DIR / src).read_bytes())
-    h.update(" ".join((*HOST_CXX_FLAGS, *HOST_LDFLAGS)).encode())
-    return BUILD_DIR / f"lib{HOST_LIB}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join((*flags, *HOST_LDFLAGS)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def host_library() -> ctypes.CDLL:
@@ -169,7 +191,7 @@ def host_library() -> ctypes.CDLL:
                 BUILD_DIR.mkdir(exist_ok=True)
                 tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
                 proc = subprocess.run(
-                    [cxx, *HOST_CXX_FLAGS, "-o", str(tmp),
+                    [cxx, *host_flags()[0], "-o", str(tmp),
                      *(str(SRC_DIR / src) for src in HOST_SOURCES), *HOST_LDFLAGS],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 build_logs[HOST_LIB] = proc.stdout

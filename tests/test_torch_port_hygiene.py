@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 from torch_fuse_mounts import needs_fuse
+from torch_net_refused import refuse_pump
 
 ROOT = Path(__file__).resolve().parent.parent
 SMOKE = str(ROOT / "configs" / "soak_smoke.toml")
@@ -53,7 +54,7 @@ for mod in ("lib.usrbio", "usrbio.ring_client", "usrbio.slots", "fuse.ring_worke
             "soak.spec", "soak.drivers", "soak.faults", "soak.harvest",
             "soak.runner", "benchmarks.soak_bench", "benchmarks.health_bench",
             "utils.trash", "client.storage_client_inmem", "fuse.kernel",
-            "fuse.user_config", "app.fuse_main"):
+            "fuse.user_config", "app.fuse_main", "net.native_conn"):
     assert f"t3fs_torch.{mod}" in mods, mod
 """
 
@@ -391,14 +392,18 @@ def test_admin_cli_main_needs_no_gpu(monkeypatch, capsys):
 
 
 def test_port_refuses_what_it_has_not_ported(monkeypatch):
-    """What the port has not ported raises, never runs something else: with
-    T3FS_NATIVE_NET=1 the reference runs its io_uring frame pump
-    (net/native_conn.py), which the port has not ported (ROADMAP A12d), so
-    the port's server start and client connect raise, each read per
-    connection as the reference reads the switch.  The ring data plane is
-    ported: asking for it builds a client on that plane.  (The kernel FUSE
-    mount is ported too: tests/test_torch_meta_bench.py runs meta_bench
-    --fuse, tests/test_torch_fuse_*.py the mount and fuse_main.)"""
+    """What the port cannot run raises, never runs something else.
+    T3FS_NATIVE_NET=1 is read per connection, as the reference reads it
+    (t3fs/net/native_conn.py native_enabled): a connection made before the
+    switch stays on asyncio, a fresh one rides the io_uring pump
+    (net/native_conn.py).  Where the pump cannot be made (io_uring_setup
+    refused, as on a host whose seccomp profile blocks it), Server.start
+    raises OSError before it listens and a client connect raises
+    RPC_CONNECT_FAILED, as in the reference; with the switch off the same
+    client then connects on asyncio.  The ring data plane is ported:
+    asking for it builds a client on that plane.  (The kernel FUSE mount
+    is ported too: tests/test_torch_meta_bench.py runs meta_bench --fuse,
+    tests/test_torch_fuse_*.py the mount and fuse_main.)"""
     import asyncio
 
     from t3fs_torch.client.storage_client import (
@@ -406,32 +411,59 @@ def test_port_refuses_what_it_has_not_ported(monkeypatch):
     from t3fs_torch.core.service import AppInfo, CoreService
     from t3fs_torch.kv.engine import MemKVEngine
     from t3fs_torch.net.client import Client
+    from t3fs_torch.net.conn import Connection
+    from t3fs_torch.net.native_conn import NativeConnection
     from t3fs_torch.net.server import Server
+    from t3fs_torch.utils.status import StatusCode, StatusError
 
-    async def body():
+    async def serving():
+        monkeypatch.setenv("T3FS_NATIVE_NET", "0")
         srv = Server()
         srv.add_service(CoreService(AppInfo(1, "core", ""), kv=MemKVEngine()))
         await srv.start()
+        return srv
+
+    async def per_connection():
+        srv = await serving()
         cli = Client()
         try:
             await cli.call(srv.address, "Core.getAppInfo")
             monkeypatch.setenv("T3FS_NATIVE_NET", "1")
             # a connection made before the switch stays as it was
             await cli.call(srv.address, "Core.getAppInfo")
-            with pytest.raises(NotImplementedError, match="A12d"):
-                await Server().start()
+            assert type(cli._conns[srv.address]) is Connection
             fresh = Client()
-            with pytest.raises(NotImplementedError, match="A12d"):
-                await fresh.call(srv.address, "Core.getAppInfo")
-            assert not fresh._conns
-            monkeypatch.setenv("T3FS_NATIVE_NET", "0")
             await fresh.call(srv.address, "Core.getAppInfo")
+            assert isinstance(fresh._conns[srv.address], NativeConnection)
             await fresh.close()
         finally:
             await cli.close()
             await srv.stop()
 
-    asyncio.run(body())
+    async def refused():
+        srv = await serving()
+        try:
+            monkeypatch.setenv("T3FS_NATIVE_NET", "1")
+            native = Server()
+            with pytest.raises(OSError, match="t3fs_pump_create failed"):
+                await native.start()
+            assert native._lsock is None and native._accept_task is None
+            assert native._server is None and native.port == 0
+            fresh = Client()
+            with pytest.raises(StatusError) as ei:
+                await fresh.call(srv.address, "Core.getAppInfo")
+            assert ei.value.code == StatusCode.RPC_CONNECT_FAILED
+            assert not fresh._conns and fresh.epoch(srv.address) == 1
+            monkeypatch.setenv("T3FS_NATIVE_NET", "0")
+            await fresh.call(srv.address, "Core.getAppInfo")
+            assert type(fresh._conns[srv.address]) is Connection
+            await fresh.close()
+        finally:
+            await srv.stop()
+
+    asyncio.run(per_connection())
+    refuse_pump(monkeypatch)
+    asyncio.run(refused())
     sc = StorageClient(lambda: None,
                        config=StorageClientConfig(data_plane="ring"))
     assert sc.cfg.data_plane == "ring" and sc._ring_state == {
